@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``i2pnet_tpu_torch``).
 
-Drives the port's main path on one CUDA card: the free-point I2PNet eval
-forward with the shipped config in bf16, at B=8, a 384x1280 image and 8192
-LiDAR points (the shapes ``bench.py`` times), with random weights from a
-seeded ``torch.Generator``. Phases, each raising on failure:
+Drives the port's two paths on one CUDA card with the shipped config in
+bf16 at B=8, a 384x1280 image and 8192 LiDAR points (the shapes
+``bench.py`` times), with random weights from a seeded ``torch.Generator``:
+the free-point I2PNet eval forward, and the free-point train step (forward
+in train mode with dropout, loss, backward, Adam). Phases, each raising on
+failure:
 
-1. build the three CUDA kernels from ``i2pnet_tpu_torch/csrc`` and print
-   the card's name and power limit;
-2. run the forward; check out3/out4 (finite, unit quaternions, a second
-   forward identical) and the kernels' launch counts for one forward
+1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
+   nvcc per source, all at once) and print the card's name and power limit;
+2. eval: run the forward; check out3/out4 (finite, unit quaternions, a
+   second forward identical) and the kernels' launches in one forward
    (FPS 4, encoder block 15, cv1 1);
 3. hold every kernel call of that forward against the kernel's plain
    PyTorch version on the same inputs (FPS exact; encoder block within
    0.01 * max(|ref|, 1); cv1 within 5e-3), TF32 off;
 4. time the forward (median of 3 windows of 20 iterations, CUDA events),
-   the same forward replayed as a CUDA graph (the device-bound floor), and
-   each kernel's launches of one forward against the plain version's, both
-   replayed as CUDA graphs so that only device time counts.
+   the forward replayed as a CUDA graph, and each kernel's launches of one
+   forward against the plain version's, both replayed as CUDA graphs;
+5. train: one step with every kernel call captured; check the launches in
+   one step (conv fwd 15, conv dx 14, conv dw 15, bn_pool fwd 15, bn_pool
+   bwd 15, FPS 4, the eval kernels 0), a finite loss, that sx, sq and every
+   parameter moved, every BatchNorm's running statistics moved (one encoder
+   and one pointwise BatchNorm by flax's momentum rule), and that a second
+   run from the same seeds gives a bit-identical first-step loss;
+6. hold every train kernel call of that step against its plain version:
+   conv fwd and dx within 0.01 * max(|ref|, 1), dw within 2e-3 * max|ref|
+   and bit-identical when repeated, bn_pool out, taps and dz exactly;
+7. time the train step (median of 3 windows of 20 steps) and each train
+   kernel's launches of one step by graph replay, beside its plain version
+   and a PyTorch library call for the same function where one exists.
 
-Prints the kernels' JSON line, then as its last line
-``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
-(``--profile`` adds a torch.profiler breakdown of the forward by kernel).
-It never runs on the CPU: without a CUDA device it exits non-zero.
+Prints the kernels' JSON line (times, bounds, launches, errors), then as
+its last line ``{"ok": true, "device": {...}}``. Run: ``python3
+chip_smoke.py`` (``--profile`` adds torch.profiler breakdowns of the
+forward and of the train step). It never runs on the CPU: without a CUDA
+device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -38,6 +52,14 @@ BATCH, IMG_H, IMG_W = 8, 384, 1280
 WINDOWS, ITERS = 3, 20
 KERNEL_REPEATS = 5
 SEED = 0
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): the bound
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+TRAIN_LAUNCHES = {"fps": 4, "encoder_block": 0, "cv1": 0, "conv_fwd": 15, "conv_dx": 14,
+                  "conv_dw": 15, "bn_pool_fwd": 15, "bn_pool_bwd": 15}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,6 +85,14 @@ def cuda_ms(fn, repeats: int) -> float:
     return statistics.median(elapsed_ms(fn) for _ in range(repeats))
 
 
+def windows_ms(fn):
+    """Median ms of one fn() over WINDOWS windows of ITERS calls, and the
+    windows' spread in percent of it."""
+    windows = [elapsed_ms(lambda: [fn() for _ in range(ITERS)]) / ITERS for _ in range(WINDOWS)]
+    med = statistics.median(windows)
+    return med, (max(windows) - min(windows)) / med * 100.0
+
+
 def graph_of(fn):
     """A CUDA graph of fn's launches, captured after a warm-up on a side
     stream; replaying it measures device time without the host's gaps."""
@@ -77,6 +107,10 @@ def graph_of(fn):
     with torch.cuda.graph(graph):
         fn()
     return graph
+
+
+def replay_ms(fn) -> float:
+    return cuda_ms(graph_of(fn).replay, KERNEL_REPEATS)
 
 
 def make_inputs(cfg, device):
@@ -113,35 +147,170 @@ class Capture:
         setattr(self.module, self.name, self.fn)
 
 
-def profile_forward(forward, card: str, iters: int = 10) -> None:
-    """Device time by kernel over `iters` forwards (torch.profiler), and the
-    device's busy share of the wall time; the full table goes to
-    chiprun_out/profile_forward.txt."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(byte_count: float, ops: float, peak: float):
+    """(ms, what bounds it) of one call: bytes or operations."""
+    t_bytes, t_ops = byte_count / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_flops(x, cin, cout) -> float:
+    B, H, W = x.shape[:3]
+    return 2.0 * B * H * W * 9 * cin * cout
+
+
+# the bound of one call of each kernel, from its arguments and result
+BOUNDS = {
+    # FPS: per step a distance (3 sub, 3 mul, 2 add), a min and a compare
+    # over every point, in f32; its serial chain of npoint steps is the real
+    # limit, which no rate bound sees
+    "fps": lambda a, out: bound(nbytes(a[0], out), 10.0 * a[0].shape[0] * a[1] * a[0].shape[1],
+                                F32_FLOPS),
+    "encoder_block": lambda a, out: bound(nbytes(a[0], a[1], a[2], a[3], out),
+                                          conv_flops(a[0], a[1].shape[2], a[1].shape[3]),
+                                          BF16_FLOPS),
+    "cv1": lambda a, out: bound(nbytes(*a, out), cv1_flops(a), BF16_FLOPS),
+    "conv_fwd": lambda a, out: bound(nbytes(a[0], a[1], a[2], out),
+                                     conv_flops(a[0], a[1].shape[3], a[1].shape[0]), BF16_FLOPS),
+    "conv_dx": lambda a, out: bound(nbytes(a[0], a[1], out),
+                                    conv_flops(a[0], a[1].shape[3], a[1].shape[0]), BF16_FLOPS),
+    "conv_dw": lambda a, out: bound(nbytes(a[0], a[1], out),
+                                    conv_flops(a[0], a[0].shape[3], a[1].shape[3]), BF16_FLOPS),
+    # elementwise work (affine, activation, rounding, compares): a few f32
+    # operations per element, far below the bytes
+    "bn_pool_fwd": lambda a, out: bound(nbytes(a[0], a[1], a[2], *out),
+                                        4.0 * a[0].numel() + 9.0 * out[0].numel(), F32_FLOPS),
+    "bn_pool_bwd": lambda a, out: bound(nbytes(a[0], a[1], a[2], a[3], a[4], out),
+                                        13.0 * out.numel(), F32_FLOPS),
+}
+
+
+def cv1_flops(a) -> float:
+    """The cv1 chain's multiply-adds per (point, pixel), times 2."""
+    pn, qn, w1c, w2, w3, v1a, v1b, v2 = a[0], a[3], a[6], a[7], a[9], a[11], a[12], a[14]
+    B, N, _ = pn.shape
+    K = qn.shape[1]
+    per = sum(w.shape[0] * w.shape[1] for w in (w1c, w2, w3, v1a, v1b, v2))
+    return 2.0 * B * N * K * per
+
+
+def total_bound(name, calls):
+    parts = [BOUNDS[name](a, out) for a, out in calls]
+    kinds = [k for _, k in parts]
+    return sum(ms for ms, _ in parts), max(set(kinds), key=kinds.count)
+
+
+def library_calls(name, calls):
+    """One PyTorch call per kernel call computing the same function, where
+    one exists: the yardstick of ``library_ms`` (the port never calls
+    these). The operands are converted outside the timed replay."""
+    import torch
+    import torch.nn.functional as F
+
+    if name == "conv_fwd":  # F.conv2d in bf16, channels_last, with bias
+        ops = [(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b.to(torch.bfloat16))
+               for (x, w, b), _ in calls]
+        return lambda: [F.conv2d(x, w, b, padding=1) for x, w, b in ops]
+    if name == "conv_dx":  # the input gradient of the forward conv
+        ops = [(g.permute(0, 3, 1, 2), wt.flip(1, 2).permute(3, 0, 1, 2)) for (g, wt), _ in calls]
+        return lambda: [torch.nn.grad.conv2d_input(
+            (g.shape[0], w.shape[1], g.shape[2], g.shape[3]), w, g, padding=1) for g, w in ops]
+    if name == "conv_dw":  # the weight gradient
+        ops = [(x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)) for (x, g), _ in calls]
+        return lambda: [torch.nn.grad.conv2d_weight(
+            x, (g.shape[1], x.shape[1], 3, 3), g, padding=1) for x, g in ops]
+    return None  # FPS, the fused blocks, cv1, bn_pool: no single PyTorch call
+
+
+def profile_run(fn, card: str, label: str, iters: int = 10) -> None:
+    """Device time by kernel over `iters` calls of fn (torch.profiler), and
+    the device's busy share of the wall time; the full table goes to
+    chiprun_out/profile_<label>.txt, and the operators grouped by their
+    input shapes, which name the layer, to profile_<label>_shapes.txt."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            forward()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device kernels only: annotation ranges such as Adam's step also show
+    # on the device's timeline and would count twice
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
     busy_ms = sum(e.device_time_total for e in kernels) / 1000.0  # one stream: no overlap
-    print(f"profile: {iters} forwards, wall {wall_ms / iters:.3f} ms/forward (profiler on), "
-          f"device busy {busy_ms / iters:.3f} ms/forward ({100.0 * busy_ms / wall_ms:.1f}%) "
+    print(f"profile {label}: {iters} calls, wall {wall_ms / iters:.3f} ms/call (profiler on), "
+          f"device busy {busy_ms / iters:.3f} ms/call ({100.0 * busy_ms / wall_ms:.1f}%) "
           f"on {card}")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1000.0 / iters
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
-        print(f"profile: {ms:8.3f} ms/forward  {name[:110]}")
+        print(f"profile {label}: {ms:8.3f} ms/call  {name[:100]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_forward.txt", "w") as f:
+    with open(f"chiprun_out/profile_{label}.txt", "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=80))
+    with open(f"chiprun_out/profile_{label}_shapes.txt", "w") as f:
+        f.write(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="self_cuda_time_total", row_limit=80, max_name_column_width=40,
+            max_shapes_column_width=120))
+
+
+def kernel_row(k, launches, err, calls, card):
+    """Time one path's calls of a kernel by graph replay: kernel, plain
+    version, library call; and its bound from this run's inputs."""
+    fn, plain = getattr(k["module"], k["fn"]), getattr(k["module"], k["plain"])
+    k_ms = replay_ms(lambda: [fn(*a) for a, _ in calls])
+    p_ms = replay_ms(lambda: [plain(*a) for a, _ in calls])
+    lib = library_calls(k["name"], calls)
+    l_ms = replay_ms(lib) if lib is not None else None
+    b_ms, b_by = total_bound(k["name"], calls)
+    lib_txt = f"{l_ms:.3f} ms" if l_ms is not None else "none"
+    print(f"{k['name']}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library {lib_txt}, "
+          f"bound {b_ms:.4f} ms ({b_by}) for {len(calls)} calls (graph replay) on {card}")
+    return {
+        "name": k["name"], "route": "cuda", "source": f"i2pnet_tpu_torch/csrc/{k['src']}",
+        "replaces": k["replaces"], "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+    }
+
+
+def train_kernel_error(name, fn, plain, calls) -> float:
+    """Hold one train kernel's calls against its plain version; the worst
+    max abs error. conv fwd/dx within 0.01 * max(|ref|, 1) (one bf16 ulp
+    of f32 sums in another order); dw within 2e-3 * max|ref| and repeatable
+    bit for bit; bn_pool out, taps and dz exactly."""
+    import torch
+
+    worst = 0.0
+    for args, got in calls:
+        ref = plain(*args)
+        shape = tuple(args[0].shape)
+        if name == "bn_pool_fwd":
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"bn_pool_fwd {shape}: out or taps differ")
+            got, ref = got[0], ref[0]
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if name == "conv_dw":
+            check(err <= 2e-3 * scale, f"conv_dw {shape}: {err} > 2e-3 * {scale}")
+            check(torch.equal(fn(*args), got), f"conv_dw {shape} not repeatable")
+        elif name == "bn_pool_bwd":
+            check(torch.equal(got, ref), f"bn_pool_bwd {shape}: max abs err {err}")
+        elif name != "bn_pool_fwd":
+            check(err <= 0.01 * max(scale, 1.0), f"{name} {shape}: {err} > 0.01 * {scale}")
+        worst = max(worst, err)
+    return worst
 
 
 def main() -> int:
@@ -154,46 +323,76 @@ def main() -> int:
 
     from i2pnet_tpu_torch.config import I2PNetConfig
     from i2pnet_tpu_torch.models import I2PNet, init_random_
-    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda
+    from i2pnet_tpu_torch.ops import _build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    ct = conv_train_cuda
+    pcc = "i2pnet_tpu/ops/conv_pallas_train.py"
+    eval_kernels = [
+        dict(name="fps", module=fps_cuda, fn="fps_cuda", plain="fps_plain", src="fps.cu",
+             replaces="i2pnet_tpu/ops/fps_pallas.py:27"),
+        dict(name="encoder_block", module=conv_cuda, fn="conv_block_cuda",
+             plain="conv_block_plain", src="conv_block.cu",
+             replaces="i2pnet_tpu/ops/conv_pallas.py:150"),
+        dict(name="cv1", module=cv_cuda, fn="cv1_cuda", plain="cv1_plain", src="cv1.cu",
+             replaces="i2pnet_tpu/ops/cv_pallas.py:58"),
+    ]
+    train_kernels = [
+        dict(name="conv_fwd", src="conv_train.cu", replaces=f"{pcc}:103"),
+        dict(name="conv_dx", src="conv_train.cu", replaces=f"{pcc}:103"),
+        dict(name="conv_dw", src="conv_train.cu", replaces=f"{pcc}:212"),
+        dict(name="bn_pool_fwd", src="bn_pool_train.cu", replaces=f"{pcc}:656"),
+        dict(name="bn_pool_bwd", src="bn_pool_train.cu", replaces=f"{pcc}:801"),
+    ]
+    for k in train_kernels:
+        k.update(module=ct, fn=f"{k['name']}_cuda", plain=f"{k['name']}_plain")
+    all_kernels = eval_kernels + train_kernels
+
+    def reset_counts():
+        for mod in (fps_cuda, conv_cuda, cv_cuda):
+            mod.launches = 0
+        for key in ct.launches:
+            ct.launches[key] = 0
+
+    def read_counts():
+        counts = {"fps": fps_cuda.launches, "encoder_block": conv_cuda.launches,
+                  "cv1": cv_cuda.launches}
+        counts.update(ct.launches)
+        return counts
 
     # --- phase 1: build the kernels, name the card
     t0 = time.perf_counter()
-    for mod in (fps_cuda, conv_cuda, cv_cuda):
+    _build.build_all(sorted({k["src"][:-3] for k in all_kernels}))
+    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda):
         mod._lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s for 3 kernel libraries")
+    print(f"build: {time.perf_counter() - t0:.1f} s for 5 kernel libraries (nvcc in parallel)")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
 
-    # --- phase 2: the main path, with its kernel calls captured
+    # --- phase 2: the eval forward, with its kernel calls captured
     cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
-    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).to(dev).eval()
+    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
     inputs = make_inputs(cfg, dev)
-    kernels = [
-        ("fps", fps_cuda, "fps_cuda", "fps_plain", "fps.cu", "i2pnet_tpu/ops/fps_pallas.py:27"),
-        ("encoder_block", conv_cuda, "conv_block_cuda", "conv_block_plain", "conv_block.cu",
-         "i2pnet_tpu/ops/conv_pallas.py:150"),
-        ("cv1", cv_cuda, "cv1_cuda", "cv1_plain", "cv1.cu", "i2pnet_tpu/ops/cv_pallas.py:58"),
-    ]
-    expected_launches = {"fps": 4, "encoder_block": 15, "cv1": 1}
-    captures = {name: Capture(mod, fn) for name, mod, fn, *_ in kernels}
+    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in eval_kernels}
     with torch.no_grad():
-        for _, mod, *_ in kernels:
-            mod.launches = 0
+        reset_counts()
         with captures["fps"], captures["encoder_block"], captures["cv1"]:
             out = model(*inputs)
         torch.cuda.synchronize()
-        launches = {name: mod.launches for name, mod, *_ in kernels}
+        counts = read_counts()
         out2 = model(*inputs)
         torch.cuda.synchronize()
-    print(f"launches in one forward: {launches}")
-    check(launches == expected_launches, f"launch counts {launches} != {expected_launches}")
+    eval_launches = {k["name"]: counts[k["name"]] for k in eval_kernels}
+    print(f"launches in one forward: {eval_launches}")
+    check(eval_launches == {"fps": 4, "encoder_block": 15, "cv1": 1},
+          f"eval launch counts {eval_launches}")
+    check(all(counts[k["name"]] == 0 for k in train_kernels), f"train kernels at eval: {counts}")
     for key in ("out3", "out4"):
         o = out[key]
         check(tuple(o.shape) == (BATCH, 7) and bool(torch.isfinite(o).all()), f"{key} not finite (B,7)")
@@ -202,11 +401,11 @@ def main() -> int:
     check(torch.equal(out["out3"], out2["out3"]), "a second forward gave another out3")
     print(f"out3[0] = {[round(v, 6) for v in out['out3'][0].tolist()]}")
 
-    # --- phase 3: every captured kernel call against its plain version
+    # --- phase 3: every captured eval kernel call against its plain version
     errors = {}
     with torch.no_grad():
-        for name, mod, _, plain_name, *_ in kernels:
-            plain = getattr(mod, plain_name)
+        for k in eval_kernels:
+            name, plain = k["name"], getattr(k["module"], k["plain"])
             worst = 0.0
             for args, got in captures[name].calls:
                 ref = plain(*args)
@@ -223,39 +422,125 @@ def main() -> int:
             print(f"{name}: {len(captures[name].calls)} calls match the plain version, "
                   f"max abs err {worst:.3e}")
 
-    # --- phase 4: timing on the card
+    # --- phase 4: eval timing on the card
     def forward():
         model(*inputs)
 
+    rows = []
     with torch.no_grad():
         forward()
-        windows = [elapsed_ms(lambda: [forward() for _ in range(ITERS)]) / ITERS
-                   for _ in range(WINDOWS)]
-        fwd_ms = statistics.median(windows)
-        spread = (max(windows) - min(windows)) / fwd_ms * 100.0
+        fwd_ms, spread = windows_ms(forward)
         print(f"forward: {fwd_ms:.3f} ms/batch, {BATCH * 1000.0 / fwd_ms:.2f} pairs/s "
               f"(B={BATCH}, median of {WINDOWS}x{ITERS}, spread {spread:.1f}%) on {card}")
         graph_ms = cuda_ms(graph_of(forward).replay, ITERS)
         print(f"forward under CUDA-graph replay (device-bound floor): {graph_ms:.3f} ms/batch, "
               f"{BATCH * 1000.0 / graph_ms:.2f} pairs/s on {card}")
-
-        # device time of one forward's calls, by graph replay: no host gaps
-        rows = []
-        for name, mod, fn_name, plain_name, src, replaces in kernels:
-            calls = captures[name].calls
-            fn, plain = getattr(mod, fn_name), getattr(mod, plain_name)
-            k_ms = cuda_ms(graph_of(lambda: [fn(*a) for a, _ in calls]).replay, KERNEL_REPEATS)
-            p_ms = cuda_ms(graph_of(lambda: [plain(*a) for a, _ in calls]).replay,
-                           KERNEL_REPEATS)
-            print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per forward "
-                  f"({len(calls)} calls, graph replay) on {card}")
-            rows.append({
-                "name": name, "route": "cuda", "source": f"i2pnet_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": launches[name], "max_abs_err": errors[name],
-                "ms": k_ms, "plain_ms": p_ms,
-            })
+        for k in eval_kernels:
+            rows.append(kernel_row(k, eval_launches[k["name"]], errors[k["name"]],
+                                   captures[k["name"]].calls, card))
     if "--profile" in sys.argv[1:]:
-        profile_forward(forward, card)
+        with torch.no_grad():
+            profile_run(forward, card, "forward")
+
+    # --- phase 5: the train step, with its kernel calls captured
+    del model, captures, out, out2
+
+    def train_setup():
+        tmodel = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED))
+        state = create_train_state(tmodel, steps_per_epoch=100)
+        return tmodel, state, make_train_step(tmodel, cfg), torch.Generator(dev).manual_seed(SEED)
+
+    rgb, lidar, intrinsic = inputs
+    batch = {
+        "rgb": rgb, "lidar": lidar, "intrinsic": intrinsic,
+        "decalib_q_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(BATCH, 1),
+        "decalib_t_gt": torch.zeros(BATCH, 3, device=dev),
+    }
+    tmodel, state, step, gen = train_setup()
+    params0 = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    buffers0 = {n: b.clone() for n, b in tmodel.named_buffers()}
+    enc_bn = tmodel.rgb_encoder.RGBEncoderStage_0.BatchNorm_0
+    pw_bn = tmodel.flow_predictor0.mlp_conv.PointwiseConv_0.BatchNorm_0
+    pw_in = []
+    hook = pw_bn.register_forward_pre_hook(lambda mod, a: pw_in.append(a[0].detach()))
+    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in all_kernels}
+    reset_counts()
+    with (captures["fps"], captures["encoder_block"], captures["cv1"], captures["conv_fwd"],
+          captures["conv_dx"], captures["conv_dw"], captures["bn_pool_fwd"],
+          captures["bn_pool_bwd"]):
+        metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    hook.remove()
+    print(f"launches in one train step: {train_launches}")
+    check(train_launches == TRAIN_LAUNCHES, f"train launch counts {train_launches}")
+    loss1 = metrics["loss"].clone()
+    check(bool(torch.isfinite(loss1)), f"first-step loss {float(loss1)}")
+    print(f"first step: loss {float(loss1):.6f}, loss_q {float(metrics['loss_q']):.6f}, "
+          f"loss_x {float(metrics['loss_x']):.6f}, sx {float(metrics['sx']):.6f}, "
+          f"sq {float(metrics['sq']):.6f}")
+    unmoved = [n for n, p in tmodel.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not unmoved, f"parameters unchanged by a step: {unmoved[:5]}")
+    check(not torch.equal(tmodel.sx.detach(), params0["sx"])
+          and not torch.equal(tmodel.sq.detach(), params0["sq"]), "sx/sq unchanged")
+    unmoved = [n for n, b in tmodel.named_buffers() if torch.equal(b, buffers0[n])]
+    check(not unmoved, f"BatchNorm statistics unchanged by a step: {unmoved[:5]}")
+    # flax's momentum rule on two BatchNorms: the first encoder block (batch
+    # moments of its bf16 conv output, var = mean2 - mean**2, as the fused
+    # route) and a pointwise one (flax's clipped fast variance of its input)
+    y0 = captures["conv_fwd"].calls[0][1].detach().float()
+    mean = y0.mean((0, 1, 2))
+    var = (y0 * y0).mean((0, 1, 2)) - mean * mean
+    xf = pw_in[0].float().reshape(-1, pw_in[0].shape[-1])
+    pw_mean = xf.mean(0)
+    pw_var = torch.clamp((xf * xf).mean(0) - pw_mean * pw_mean, min=0.0)
+    prefix = {enc_bn: "rgb_encoder.RGBEncoderStage_0.BatchNorm_0",
+              pw_bn: "flow_predictor0.mlp_conv.PointwiseConv_0.BatchNorm_0"}
+    for bn, (m, v) in ((enc_bn, (mean, var)), (pw_bn, (pw_mean, pw_var))):
+        for buf, batch_stat in (("running_mean", m), ("running_var", v)):
+            want = 0.9 * buffers0[f"{prefix[bn]}.{buf}"] + 0.1 * batch_stat
+            got = getattr(bn, buf)
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-6),
+                  f"{prefix[bn]}.{buf}: max gap {float((got - want).abs().max())}")
+    print("train step: loss finite; every parameter, sx, sq and BatchNorm statistic moved; "
+          "running statistics follow 0.9 * old + 0.1 * batch")
+    second = train_setup()
+    loss1b = second[2](second[1], batch, second[3])["loss"]
+    check(torch.equal(loss1, loss1b), f"a second run's first-step loss {float(loss1b)} != "
+                                      f"{float(loss1)}")
+    print("a second run from the same seeds: bit-identical first-step loss")
+    del second
+
+    # --- phase 6: every train kernel call of the step against its plain version
+    with torch.no_grad():
+        for k in train_kernels:
+            name = k["name"]
+            errors[name] = train_kernel_error(name, getattr(ct, k["fn"]), getattr(ct, k["plain"]),
+                                              captures[name].calls)
+            print(f"{name}: {len(captures[name].calls)} calls match the plain version, "
+                  f"max abs err {errors[name]:.3e}")
+        for args, got in captures["fps"].calls:
+            check(torch.equal(got, fps_cuda.fps_plain(*args)), "train-step fps indices differ")
+    print("conv_dw: every call bit-identical when repeated; bn_pool out, taps and dz exact")
+
+    # --- phase 7: train timing on the card
+    losses = []
+
+    def train_step():
+        losses.append(step(state, batch, gen)["loss"])
+
+    train_step()
+    step_ms, spread = windows_ms(train_step)
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "a step's loss is not finite")
+    print(f"train step: {step_ms:.3f} ms/step, {BATCH * 1000.0 / step_ms:.2f} pairs/s "
+          f"(B={BATCH}, median of {WINDOWS}x{ITERS}, spread {spread:.1f}%, "
+          f"{len(losses) + 1} steps, every loss finite) on {card}")
+    with torch.no_grad():
+        for k in train_kernels:
+            rows.append(kernel_row(k, train_launches[k["name"]], errors[k["name"]],
+                                   captures[k["name"]].calls, card))
+    if "--profile" in sys.argv[1:]:
+        profile_run(train_step, card, "train_step")
     print(json.dumps({"kernels": rows}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

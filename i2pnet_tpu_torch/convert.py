@@ -11,7 +11,8 @@ rename of each leaf plus two layout rules (the reverse of
   top-level sq / sx                 -> ``sq`` / ``sx``, as they are
 
 Arrays come in as numpy (``np.asarray`` of each leaf); nothing here
-imports jax.
+imports jax. ``load_optax_adam_state`` carries a JAX train state's Adam
+moments across with the same renaming, so training resumes in the port.
 """
 
 from __future__ import annotations
@@ -65,3 +66,40 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load converted flax variables into ``model`` with ``strict=True``."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
+
+
+def _find_adam_state(tree):
+    """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain's state."""
+    if all(hasattr(tree, k) for k in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def load_optax_adam_state(state, opt_state) -> None:
+    """Load the Adam state of an optax chain built by the JAX package's
+    ``make_optimizer`` into a port ``TrainState`` (``train/state.py``):
+    ``mu``/``nu`` -> ``exp_avg``/``exp_avg_sq`` of each parameter, by the
+    renaming of ``flax_to_state_dict``; ``count`` -> each parameter's
+    ``step`` and the state's update count, which sets the schedule's rate.
+    Load the parameters themselves with ``load_flax_variables`` first."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in opt_state")
+    count = int(np.asarray(adam.count))
+    mu = flax_to_state_dict({"params": adam.mu})
+    nu = flax_to_state_dict({"params": adam.nu})
+    params = dict(state.model.named_parameters())
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise ValueError("the optax moments do not match the model's parameters")
+    for name, p in params.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
+    state.set_step(count)

@@ -39,3 +39,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// 8 consecutive bf16 from src as one 16-byte word, zeros past the first
+// `valid`: a vector load when the row is 16-byte aligned (vec, cin % 8 == 0,
+// so valid is then >= 8 or <= 0), else scalar loads.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, bool vec, int valid) {
+  if (valid <= 0) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec) return *reinterpret_cast<const uint4*>(src);
+  __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = j < valid ? src[j] : __float2bfloat16_rn(0.f);
+  return *reinterpret_cast<const uint4*>(v);
+}

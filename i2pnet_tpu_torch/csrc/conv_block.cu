@@ -66,18 +66,6 @@ __host__ __device__ inline Smem smem_layout(int cin, int co_t, int stride) {
   return s;
 }
 
-// 8 consecutive bf16 from src as one 16-byte word, zeros past the first
-// `valid`: a vector load when the row is 16-byte aligned (vec, cin % 8 == 0,
-// so valid is then >= 8 or <= 0), else scalar loads.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, bool vec, int valid) {
-  if (valid <= 0) return make_uint4(0u, 0u, 0u, 0u);
-  if (vec) return *reinterpret_cast<const uint4*>(src);
-  __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = j < valid ? src[j] : __float2bfloat16_rn(0.f);
-  return *reinterpret_cast<const uint4*>(v);
-}
-
 __global__ void __launch_bounds__(kWarps * 32)
 conv_block_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                   const float* __restrict__ scale, const float* __restrict__ shift,

@@ -1,12 +1,15 @@
-"""Free-point I2PNet, eval forward (port of ``i2pnet_tpu/models/i2pnet.py``).
+"""Free-point I2PNet (port of ``i2pnet_tpu/models/i2pnet.py``), eval and
+train forward.
 
 Coarse-to-fine 2D-3D registration: RGB pyramid + PointNet++ pyramid ->
 cost volume at l3 -> resample to l4 -> coarse pose (q4, t4) -> warp l3
 points -> second cost volume -> upconv refinement -> residual pose (q3, t3)
--> compose. Channels-last throughout.
+-> compose. Channels-last throughout. ``model.train()`` selects the train
+forward (batch-statistics BatchNorm with running-stat updates, head
+dropout), ``model.eval()`` the eval one, as flax's ``train`` flag.
 
-Not ported yet: the efgh (calibration-matrix) branch, projection masks,
-``gt_project``/``delay_weight``, and training.
+Not ported yet: the efgh (calibration-matrix) branch, projection masks and
+``gt_project``/``delay_weight``.
 """
 
 from __future__ import annotations
@@ -52,13 +55,27 @@ def _feat_in(featmode: Optional[str]) -> int:
     return {"dim10feat": 10, "dist": 1}.get(featmode, 6)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; without one that raises (the CPU runs
+    only when asked for, ``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+    return device
+
+
 class I2PNet(nn.Module):
-    """Free-point registration network. ``forward`` returns a dict with
-    out3 (B,7) refined [q, t], out4 (B,7) coarse, and the loss weights
+    """Free-point registration network, built on ``device`` (the CUDA card
+    by default; ``device="cpu"`` for the CPU). ``forward`` returns a dict
+    with out3 (B,7) refined [q, t], out4 (B,7) coarse, and the loss weights
     sx, sq."""
 
-    def __init__(self, cfg: I2PNetConfig):
+    def __init__(self, cfg: I2PNetConfig, device=None):
         super().__init__()
+        with torch.device(resolve_device(device)):
+            self._build(cfg)
+
+    def _build(self, cfg: I2PNetConfig):
         if cfg.efgh:
             raise NotImplementedError("the efgh branch is not ported yet")
         if (cfg.use_projection_mask or cfg.ground_truth_projection_mask
@@ -90,7 +107,7 @@ class I2PNet(nn.Module):
             return PoseHead(
                 width, cfg.head_hidden_dim, cfg.rotation_quat_head_dim,
                 cfg.transition_vec_head_dim, cfg.pose_head_mlps[i][0], cfg.pose_head_mlps[i][1],
-                cfg.mask_sigmoid, cfg.max_head,
+                cfg.mask_sigmoid, cfg.max_head, cfg.head_dropout_rate, cfg.split_dp,
             )
 
         D = cvm[0][-1]  # cost-volume output width
@@ -112,10 +129,12 @@ class I2PNet(nn.Module):
         self.sq = nn.Parameter(torch.tensor([cfg.sq_init]))
         self.sx = nn.Parameter(torch.tensor([cfg.sx_init]))
 
-    def forward(self, rgb_img, lidar_xyz, intrinsic, lidar_feature=None, raw_xyz=None):
+    def forward(self, rgb_img, lidar_xyz, intrinsic, lidar_feature=None, raw_xyz=None,
+                generator: Optional[torch.Generator] = None):
         """rgb_img (B,H,W,3); lidar_xyz (B,N,3) camera-frame points;
         intrinsic (B,3,3); optional lidar_feature (B,N,3) and raw_xyz
-        (B,N,3)."""
+        (B,N,3); ``generator`` (on the model's device) feeds the heads'
+        dropout in training."""
         cfg = self.cfg
         B, H, W, _ = rgb_img.shape
         if cfg.raw_feat_point and raw_xyz is None:
@@ -148,7 +167,8 @@ class I2PNet(nn.Module):
         concat_4 = self.cost_volume1(lidar_uv, LF3, RF3_index, RF3_flat, lidar_z)
         _, l4_points_predict, _, _ = self.layer_idx(P3, concat_4, sample_idx=fps4, raw_xyz=P3_raw)
         l4_cost_volume_w = self.flow_predictor0(LF4, None, l4_points_predict)
-        q4, t4, _ = self.l4_head(l4_points_predict, l4_cost_volume_w, P4, LF4)
+        q4, t4, _ = self.l4_head(l4_points_predict, l4_cost_volume_w, P4, LF4,
+                                 generator=generator)
         out4 = torch.cat([q4, t4], dim=1)
 
         warped_uv, warped_z = Q.warp_to_normalized_plane(P3, q4, t4)
@@ -159,7 +179,8 @@ class I2PNet(nn.Module):
         l3_up = self.set_upconv0_upsample(P3, P4, LF3, l4_points_predict, **raw)
         l3_cost_volume_predict = self.flow_predictor0_predict(LF3, l3_up, concat_3)
         l3_cost_volume_w = self.flow_predictor0_w(LF3, l3_w_up, l3_cost_volume_predict)
-        q3, t3, _ = self.l3_head(l3_cost_volume_predict, l3_cost_volume_w, P3, LF3)
+        q3, t3, _ = self.l3_head(l3_cost_volume_predict, l3_cost_volume_w, P3, LF3,
+                                 generator=generator)
 
         q, t = Q.compose_pose(q3, t3, q4, t4)
         out3 = torch.cat([q, t], dim=1)

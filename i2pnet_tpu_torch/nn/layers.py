@@ -6,9 +6,9 @@ bridge (``convert.py``) is a mechanical rename.
 
 Compute dtype follows flax: a layer given ``dtype`` casts its input and
 parameters to it and returns it; without one, the input and f32 parameters
-promote to f32. BatchNorm is the flax eval form ``(x - mean) * (rsqrt(var +
-eps) * scale) + bias`` in f32, cast to the requested dtype. The port runs
-the eval forward only: a BatchNorm in training mode raises.
+promote to f32. BatchNorm is flax's ``(x - mean) * (rsqrt(var + eps) *
+scale) + bias`` in f32, cast to the requested dtype: at eval with the
+running statistics, in training with the batch's (see ``BatchNorm``).
 """
 
 from __future__ import annotations
@@ -19,11 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from i2pnet_tpu_torch.ops import conv_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda
 
-# torch BatchNorm defaults: eps 1e-5, running-stat factor 0.1 (flax
-# momentum = 1 - torch momentum); the momentum is used by training, which
-# is not ported yet
+# flax momentum 0.9 (running = 0.9 * running + 0.1 * batch), eps 1e-5
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
@@ -37,8 +35,9 @@ def cat(tensors, dim: int) -> torch.Tensor:
 
 
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """jax.nn.softmax's formulation, op by op in x's dtype."""
-    u = torch.exp(x - torch.amax(x, dim=dim, keepdim=True))
+    """jax.nn.softmax's formulation, op by op in x's dtype; like it, no
+    gradient flows through the max."""
+    u = torch.exp(x - torch.amax(x, dim=dim, keepdim=True).detach())
     return u / torch.sum(u, dim=dim, keepdim=True)
 
 
@@ -56,7 +55,14 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` at eval: running statistics, f32 arithmetic."""
+    """flax ``nn.BatchNorm`` over the last axis, f32 arithmetic.
+
+    In training it normalises by the batch's statistics as flax's
+    ``_compute_stats`` takes them: in f32, the fast variance ``E[x^2] -
+    E[x]^2`` clipped at 0 (biased), and moves the running statistics by
+    ``update_running`` with that same biased variance. ``torch.nn.BatchNorm``
+    differs on all three points (two-pass variance, an unbiased running
+    var, momentum 0.1), so the arithmetic is written out."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -67,10 +73,22 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x.float() - mean) * mul + self.bias
         return y.to(dtype or torch.float32)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's momentum rule, in flax's order of f32 operations."""
+        self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+        self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
 
     def fold(self, dense: Dense):
         """(W (in, out), b) f32 with this eval BN folded into ``dense``."""
@@ -134,11 +152,18 @@ class RGBEncoderStage(nn.Module):
     """One encoder stage: per block 3x3 conv -> BN -> LeakyReLU(0.1) -> 3x3
     max-pool at stride s. NHWC.
 
-    At eval in bf16 every block runs as one fused kernel
-    (``ops/conv_cuda.py``), with bias and BN folded into an f32 scale/shift,
-    as the JAX package routes its eval blocks to the fused Pallas kernel.
-    Otherwise the native chain runs; with ``bn_compute_dtype`` the BN result
-    is in the compute dtype.
+    In bf16 the blocks take the fused kernels, as the JAX package routes
+    them to its Pallas kernels: at eval one kernel per block
+    (``ops/conv_cuda.py``, bias and BN folded into an f32 scale/shift); in
+    training the four train kernels (``ops/conv_train_cuda.py``: conv, batch
+    statistics, scale/shift + LeakyReLU + pool, and their gradients), with
+    the running statistics moved by flax's momentum rule. The JAX package
+    takes its train kernels only where its TPU layout rules hold
+    (``stage_supported_train``); the port has none and takes them at every
+    shape, so where JAX would run its native ops the two differ only in
+    rounding points. Otherwise (f32) the native chain runs: conv, BN with
+    batch or running statistics, LeakyReLU, pool; with ``bn_compute_dtype``
+    the BN result is in the compute dtype.
     """
 
     def __init__(self, cin: int, channels: Sequence[int], strides: Sequence[int],
@@ -156,8 +181,8 @@ class RGBEncoderStage(nn.Module):
             cin = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training and self.dtype == torch.bfloat16:
-            return self._fused_eval(x)
+        if self.dtype == torch.bfloat16:
+            return self._fused_train(x) if self.training else self._fused_eval(x)
         bn_dt = self.dtype if self.bn_compute_dtype else None
         for (conv, bn), s in zip(self.blocks, self.strides):
             dt = self.dtype or torch.promote_types(x.dtype, conv.weight.dtype)
@@ -182,6 +207,13 @@ class RGBEncoderStage(nn.Module):
             w = conv.weight.permute(2, 3, 1, 0)  # (3, 3, cin, cout), HWIO
             x = conv_cuda.fused_conv_block(x, w, scale, shift, s)
         return x
+
+    def _fused_train(self, x: torch.Tensor) -> torch.Tensor:
+        blocks = [(conv.weight, conv.bias, bn.weight, bn.bias) for conv, bn in self.blocks]
+        out, stats = conv_train_cuda.fused_stage_train(x, blocks, self.strides, BN_EPS)
+        for (_, bn), (mean, var) in zip(self.blocks, stats):
+            bn.update_running(mean, var)
+        return out
 
 
 class RGBEncoder(nn.Module):

@@ -48,22 +48,42 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``. The compiler's
-    register/shared-memory report is kept beside the library as ``.log``."""
-    src = CSRC / f"{name}.cu"
-    lib_path = BUILD_DIR / f"lib{name}_{_digest(src)}.so"
-    if not lib_path.exists():
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{_digest(CSRC / f'{name}.cu')}.so"
+
+
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one nvcc process per source, all started together; raise with the
+    compiler's output if any fails. The register/shared-memory report is
+    kept beside each library as ``.log``."""
+    jobs = []
+    for name in names:
+        lib_path = _lib_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, lib_path, tmp, proc))
+    failures = []
+    for name, lib_path, tmp, proc in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            failures.append(f"nvcc failed on {name}.cu:\n{out}\n{err}")
+            continue
+        lib_path.with_suffix(".log").write_text(out + err)
         os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
     lib.i2p_error_string.argtypes = [ctypes.c_int]
     lib.i2p_error_string.restype = ctypes.c_char_p
     return lib

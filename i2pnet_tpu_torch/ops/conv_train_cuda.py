@@ -1,0 +1,375 @@
+"""The train-mode RGB-encoder blocks, differentiable: four CUDA kernels
+(``csrc/conv_train.cu``, ``csrc/bn_pool_train.cu``) and their plain PyTorch
+versions. Port of ``i2pnet_tpu/ops/conv_pallas_train.py`` on its default
+(``idx``) backward.
+
+The kernels, each replacing one TPU kernel of that module:
+
+  (a) ``conv_fwd_cuda`` / ``conv_dx_cuda`` (``_conv_kernel`` :103): the 3x3
+      conv + bias, bf16 operands, f32 sums, bf16 out; the input gradient is
+      the same kernel on the flipped-transposed weights with no bias;
+  (b) ``conv_dw_cuda`` (``_dw_kernel`` :212 with ``unpack_dw``): the f32
+      weight gradient, split over pixel tiles and summed in a fixed order;
+  (c) ``bn_pool_fwd_cuda`` (``_bn_pool_fwd_idx_kernel`` :656): ``y * sc +
+      sh`` in f32, LeakyReLU(0.1), bf16, the 3x3 max-pool (stride s, pad 1),
+      and the winning tap of each pooled cell (the first max in row-major
+      order) as uint8;
+  (d) ``bn_pool_bwd_cuda`` (``_bn_pool_bwd_idx_kernel`` :801): the pooled
+      cotangent routed to the saved taps, summed in tap order, times the
+      LeakyReLU slope, as f32 dz.
+
+All four are bound by bytes on the H100 (see the source notes). Layouts
+are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
+weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
+``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts
+its launches in ``launches``; the dispatchers (``conv_fwd``, ...) take the
+plain version for CPU tensors. The autograd functions look the dispatchers
+up when they run, so a wrapper replaced on the module sees the backward's
+calls too.
+
+The JAX package takes these kernels only where its TPU layout rules hold
+(``stage_supported_train``) and native ops elsewhere; the port has no such
+rules and takes them at every bf16 train shape. Where JAX would fall back,
+the two differ only in rounding points.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from i2pnet_tpu_torch.ops import _build
+
+# kernel launches since the last reset (read by chip_smoke.py); conv_dw
+# counts one per call, which is two CUDA launches (tiles, then their sum)
+launches = dict.fromkeys(("conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd"), 0)
+
+_BF = torch.bfloat16
+# (b)'s split: about this many blocks per call, each summing a fixed run of
+# 8x16-pixel tiles (a function of the shape alone, so the sum order is too)
+_DW_BLOCKS = 528
+
+
+# ---- plain versions --------------------------------------------------------
+
+def _conv_plain(x, w, bias):
+    xf = x.float().permute(0, 3, 1, 2)
+    y = F.conv2d(xf, w.float().permute(0, 3, 1, 2), padding=1).permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias
+    return y.to(_BF).contiguous()
+
+
+def conv_fwd_plain(x, w, bias):
+    """x (B,H,W,cin) bf16, w (cout,3,3,cin) bf16, bias (cout,) f32 ->
+    y (B,H,W,cout) bf16: the products exact in f32, f32 sums, bias added in
+    f32, one rounding. On the card, callers switch cuDNN's TF32 off."""
+    return _conv_plain(x, w, bias)
+
+
+def conv_dx_plain(g, wt):
+    """g (B,H,W,cout) bf16, wt (cin,3,3,cout) bf16 the flipped-transposed
+    weights -> dx (B,H,W,cin) bf16 (the conv with no bias)."""
+    return _conv_plain(g, wt, None)
+
+
+def conv_dw_plain(x, g):
+    """x (B,H,W,cin) bf16, g (B,H,W,cout) bf16 -> dw (3,3,cin,cout) f32,
+    dw[kh,kw] = sum over pixels of x shifted by (kh-1, kw-1), times g."""
+    B, H, W, cin = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(-1, g.shape[-1])
+    taps = [xp[:, kh:kh + H, kw:kw + W].reshape(-1, cin).t() @ gf
+            for kh in range(3) for kw in range(3)]
+    return torch.stack(taps).reshape(3, 3, cin, g.shape[-1])
+
+
+def _pool_taps(a, stride):
+    """The 9 window taps of a (B,H,W,C) padded with -inf: views
+    (B,Ho,Wo,C) in row-major (kh, kw) order."""
+    B, H, W, C = a.shape
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1), value=float("-inf"))
+    return [ap[:, kh:kh + (Ho - 1) * stride + 1:stride, kw:kw + (Wo - 1) * stride + 1:stride]
+            for kh in range(3) for kw in range(3)]
+
+
+def _affine(y, sc, sh):
+    return y.float() * sc + sh  # two roundings, as the kernels
+
+
+def bn_pool_fwd_plain(y, sc, sh, stride: int):
+    """y (B,H,W,C) bf16, sc/sh (C,) f32 -> (out (B,Ho,Wo,C) bf16, taps
+    (B,Ho,Wo,C) uint8): the first max by strict >, as the JAX kernel's
+    running-max scan."""
+    z = _affine(y, sc, sh)
+    a = torch.where(z >= 0, z, 0.1 * z).to(_BF).float()
+    views = _pool_taps(a, stride)
+    best = views[0]
+    taps = torch.zeros(best.shape, dtype=torch.uint8, device=y.device)
+    for k, v in enumerate(views[1:], start=1):
+        upd = v > best
+        taps = torch.where(upd, k, taps).to(torch.uint8)
+        best = torch.where(upd, v, best)
+    return best.to(_BF), taps
+
+
+def bn_pool_bwd_plain(y, sc, sh, taps, g, stride: int):
+    """dz (B,H,W,C) f32: for each pixel the pooled cotangents g (bf16)
+    whose saved tap is this pixel, summed in tap order k = 0..8, times the
+    LeakyReLU slope at z = y * sc + sh."""
+    B, H, W, C = y.shape
+    Ho, Wo = taps.shape[1:3]
+    gf = g.float()
+    acc = torch.zeros(B, (Ho - 1) * stride + 3, (Wo - 1) * stride + 3, C, device=y.device)
+    for k in range(9):
+        kh, kw = divmod(k, 3)
+        view = acc[:, kh:kh + (Ho - 1) * stride + 1:stride, kw:kw + (Wo - 1) * stride + 1:stride]
+        view += torch.where(taps == k, gf, 0.0)
+    z = _affine(y, sc, sh)
+    return acc[:, 1:H + 1, 1:W + 1] * torch.where(z >= 0, 1.0, 0.1)
+
+
+# ---- the CUDA kernels --------------------------------------------------------
+
+@functools.cache
+def _conv_lib() -> ctypes.CDLL:
+    lib = _build.load("conv_train")
+    v, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_launch.argtypes = [v, v, v, v, i, i, i, i, i, v]
+    lib.conv3x3_launch.restype = i
+    lib.conv_dw_launch.argtypes = [v, v, v, v, i, i, i, i, i, i, i, v]
+    lib.conv_dw_launch.restype = i
+    return lib
+
+
+@functools.cache
+def _pool_lib() -> ctypes.CDLL:
+    lib = _build.load("bn_pool_train")
+    v, i = ctypes.c_void_p, ctypes.c_int
+    lib.bn_pool_fwd_launch.argtypes = [v, v, v, v, v, i, i, i, i, i, v]
+    lib.bn_pool_fwd_launch.restype = i
+    lib.bn_pool_bwd_launch.argtypes = [v, v, v, v, v, v, i, i, i, i, i, v]
+    lib.bn_pool_bwd_launch.restype = i
+    return lib
+
+
+def _lib():
+    """Build (if needed) and load both kernel libraries."""
+    return _conv_lib(), _pool_lib()
+
+
+def _require(t, dtype, shape, what):
+    _build.require_cuda(t, dtype, what)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: expected 16-byte alignment")
+
+
+def _conv3x3(x, w, bias, what):
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    _require(x, _BF, (B, H, W, cin), f"{what} x")
+    _require(w, _BF, (cout, 3, 3, cin), f"{what} w")
+    if bias is not None:
+        _require(bias, torch.float32, (cout,), f"{what} bias")
+    if cout % 8:
+        raise ValueError(f"{what}: {cout} output channels, not a multiple of 8")
+    y = torch.empty(B, H, W, cout, dtype=_BF, device=x.device)
+    lib = _conv_lib()
+    code = lib.conv3x3_launch(
+        _build.ptr(x), _build.ptr(w), None if bias is None else _build.ptr(bias), _build.ptr(y),
+        B, H, W, cin, cout, _build.stream_of(x))
+    _build.check(lib, code, "conv3x3_launch")
+    launches[what] += 1
+    return y
+
+
+def conv_fwd_cuda(x, w, bias):
+    """Kernel (a) forward; operands as ``conv_fwd_plain``, contiguous CUDA
+    tensors, cout % 8 == 0."""
+    return _conv3x3(x, w, bias, "conv_fwd")
+
+
+def conv_dx_cuda(g, wt):
+    """Kernel (a) on the cotangent; operands as ``conv_dx_plain``."""
+    return _conv3x3(g, wt, None, "conv_dx")
+
+
+def _dw_split(B: int, H: int, W: int, cin: int, cout: int):
+    """(tiles per block, blocks) of kernel (b)'s split over 8x16 tiles."""
+    tiles = B * -(-H // 8) * -(-W // 16)
+    pairs = -(-cin // 16) * (cout // (16 if cout % 16 == 0 else 8))
+    per = -(-tiles // max(1, min(tiles, -(-_DW_BLOCKS // pairs))))
+    return per, -(-tiles // per)
+
+
+def conv_dw_cuda(x, g):
+    """Kernel (b); operands as ``conv_dw_plain``, cout % 8 == 0."""
+    B, H, W, cin = x.shape
+    cout = g.shape[-1]
+    _require(x, _BF, (B, H, W, cin), "conv_dw x")
+    _require(g, _BF, (B, H, W, cout), "conv_dw g")
+    if cout % 8:
+        raise ValueError(f"conv_dw: {cout} output channels, not a multiple of 8")
+    per, chunks = _dw_split(B, H, W, cin, cout)
+    partial = torch.empty(chunks, 9 * cin * cout, dtype=torch.float32, device=x.device)
+    dw = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
+    lib = _conv_lib()
+    code = lib.conv_dw_launch(
+        _build.ptr(x), _build.ptr(g), _build.ptr(partial), _build.ptr(dw),
+        B, H, W, cin, cout, per, chunks, _build.stream_of(x))
+    _build.check(lib, code, "conv_dw_launch")
+    launches["conv_dw"] += 1
+    return dw
+
+
+def _pool_shape(y, sc, sh, stride, what):
+    B, H, W, C = y.shape
+    _require(y, _BF, (B, H, W, C), f"{what} y")
+    _require(sc, torch.float32, (C,), f"{what} sc")
+    _require(sh, torch.float32, (C,), f"{what} sh")
+    if C % 8 or stride not in (1, 2):
+        raise ValueError(f"{what}: unsupported C={C}, stride={stride}")
+    return B, H, W, C, (H - 1) // stride + 1, (W - 1) // stride + 1
+
+
+def bn_pool_fwd_cuda(y, sc, sh, stride: int):
+    """Kernel (c); operands as ``bn_pool_fwd_plain``, C % 8 == 0."""
+    B, H, W, C, Ho, Wo = _pool_shape(y, sc, sh, stride, "bn_pool_fwd")
+    out = torch.empty(B, Ho, Wo, C, dtype=_BF, device=y.device)
+    taps = torch.empty(B, Ho, Wo, C, dtype=torch.uint8, device=y.device)
+    lib = _pool_lib()
+    code = lib.bn_pool_fwd_launch(
+        _build.ptr(y), _build.ptr(sc), _build.ptr(sh), _build.ptr(out), _build.ptr(taps),
+        B, H, W, C, stride, _build.stream_of(y))
+    _build.check(lib, code, "bn_pool_fwd_launch")
+    launches["bn_pool_fwd"] += 1
+    return out, taps
+
+
+def bn_pool_bwd_cuda(y, sc, sh, taps, g, stride: int):
+    """Kernel (d); operands as ``bn_pool_bwd_plain``."""
+    B, H, W, C, Ho, Wo = _pool_shape(y, sc, sh, stride, "bn_pool_bwd")
+    _require(taps, torch.uint8, (B, Ho, Wo, C), "bn_pool_bwd taps")
+    _require(g, _BF, (B, Ho, Wo, C), "bn_pool_bwd g")
+    dz = torch.empty(B, H, W, C, dtype=torch.float32, device=y.device)
+    lib = _pool_lib()
+    code = lib.bn_pool_bwd_launch(
+        _build.ptr(y), _build.ptr(sc), _build.ptr(sh), _build.ptr(taps), _build.ptr(g),
+        _build.ptr(dz), B, H, W, C, stride, _build.stream_of(y))
+    _build.check(lib, code, "bn_pool_bwd_launch")
+    launches["bn_pool_bwd"] += 1
+    return dz
+
+
+# ---- dispatch: the kernel for CUDA tensors, the plain version for CPU ones ---
+
+def conv_fwd(x, w, bias):
+    return conv_fwd_cuda(x, w, bias) if x.is_cuda else conv_fwd_plain(x, w, bias)
+
+
+def conv_dx(g, wt):
+    return conv_dx_cuda(g, wt) if g.is_cuda else conv_dx_plain(g, wt)
+
+
+def conv_dw(x, g):
+    return conv_dw_cuda(x, g) if x.is_cuda else conv_dw_plain(x, g)
+
+
+def bn_pool_fwd(y, sc, sh, stride: int):
+    return bn_pool_fwd_cuda(y, sc, sh, stride) if y.is_cuda else bn_pool_fwd_plain(y, sc, sh, stride)
+
+
+def bn_pool_bwd(y, sc, sh, taps, g, stride: int):
+    if y.is_cuda:
+        return bn_pool_bwd_cuda(y, sc, sh, taps, g, stride)
+    return bn_pool_bwd_plain(y, sc, sh, taps, g, stride)
+
+
+# ---- autograd ----------------------------------------------------------------
+
+class _ConvTrain(torch.autograd.Function):
+    """(x (B,H,W,cin), w (cout,cin,3,3) f32, b (cout,) f32) -> y bf16, as
+    ``_make_conv_train`` (conv_pallas_train.py:1124-1178)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x = x.to(_BF).contiguous()
+        ctx.save_for_backward(x, w)
+        return conv_fwd(x, w.permute(0, 2, 3, 1).to(_BF).contiguous(), b.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(_BF).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            # transposed conv = the conv of g with w flipped in space, its
+            # channel axes swapped: wt[ci, kh, kw, co] = w[co, ci, 2-kh, 2-kw]
+            dx = conv_dx(g, w.flip(2, 3).permute(1, 2, 3, 0).to(_BF).contiguous())
+        dw = conv_dw(x, g).permute(3, 2, 0, 1)
+        db = g.float().sum((0, 1, 2))
+        return dx, dw, db
+
+
+class _BnPool(torch.autograd.Function):
+    """(y bf16, sc f32, sh f32) -> pooled bf16, as ``_make_bn_pool``'s idx
+    pair (conv_pallas_train.py:1053-1076)."""
+
+    @staticmethod
+    def forward(ctx, y, sc, sh, stride):
+        out, taps = bn_pool_fwd(y, sc, sh, stride)
+        ctx.save_for_backward(y, sc, sh, taps)
+        ctx.stride = stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sc, sh, taps = ctx.saved_tensors
+        dz = bn_pool_bwd(y, sc, sh, taps, g.to(_BF).contiguous(), ctx.stride)
+        dy = (dz * sc).to(_BF)
+        dsc = (dz * y.float()).sum((0, 1, 2))
+        dsh = dz.sum((0, 1, 2))
+        return dy, dsc, dsh, None
+
+
+def conv_train(x, w, b):
+    """Differentiable 3x3 conv + bias: x (B,H,W,cin) (cast to bf16), w
+    (cout,cin,3,3) f32, b (cout,) f32 -> (B,H,W,cout) bf16."""
+    return _ConvTrain.apply(x, w, b)
+
+
+def bn_pool(y, sc, sh, stride: int):
+    """Differentiable scale/shift -> LeakyReLU(0.1) -> bf16 -> 3x3 max-pool
+    (stride s, pad 1): y (B,H,W,C) bf16, sc/sh (C,) f32 -> (B,Ho,Wo,C) bf16."""
+    return _BnPool.apply(y.contiguous(), sc.float().contiguous(), sh.float().contiguous(), stride)
+
+
+def fused_stage_train(x, blocks, strides, eps: float = 1e-5):
+    """One RGB-encoder stage in train mode, as ``fused_stage_train``
+    (conv_pallas_train.py:1218-1274): x (B,H,W,cin); blocks per block
+    (w (cout,cin,3,3), b, gamma, beta). Per block: ``conv_train``, the batch
+    moments of the bf16 conv output in f32 (``var = mean2 - mean**2``,
+    unclipped), ``sc = gamma * rsqrt(var + eps)``, ``sh = beta - mean *
+    sc``, then ``bn_pool``. The stats coupling is plain autograd.
+
+    Returns ((B,Ho,Wo,channels[-1]) bf16, [(mean_j, var_j), ...])."""
+    x = x.to(_BF)
+    stats = []
+    for (w, b, gamma, beta), s in zip(blocks, strides):
+        y = conv_train(x, w, b)
+        yf = y.float()
+        n = y.shape[0] * y.shape[1] * y.shape[2]
+        mean = yf.sum((0, 1, 2)) / n
+        mean2 = (yf * yf).sum((0, 1, 2)) / n
+        var = mean2 - mean * mean
+        sc = gamma.float() * torch.rsqrt(var + eps)
+        sh = beta.float() - mean * sc
+        x = bn_pool(y, sc, sh, s)
+        stats.append((mean, var))
+    return x, stats

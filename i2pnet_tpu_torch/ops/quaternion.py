@@ -68,3 +68,29 @@ def compose_pose(q_outer, t_outer, q_inner, t_inner):
     q = qmul(q_outer, q_inner)
     t = qrotate(q_outer[:, None, :], t_inner[:, None, :])[:, 0, :] + t_outer
     return q, t
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3), the JAX
+    package's expansion."""
+    w, x, y, z = q.unbind(-1)
+    r = torch.stack(
+        [
+            1 - 2 * y**2 - 2 * z**2,
+            2 * x * y - 2 * z * w,
+            2 * x * z + 2 * y * w,
+            2 * x * y + 2 * z * w,
+            1 - 2 * x**2 - 2 * z**2,
+            2 * y * z - 2 * x * w,
+            2 * x * z - 2 * y * w,
+            2 * y * z + 2 * x * w,
+            1 - 2 * x**2 - 2 * y**2,
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def pose_to_matrix(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(q (B,4), t (B,3)) -> extrinsic (B, 3, 4)."""
+    return torch.cat([quat_to_rotmat(q), t[..., None]], dim=-1)

@@ -1,0 +1,17 @@
+"""The free-point train step of the port (port of ``i2pnet_tpu/train``)."""
+
+from i2pnet_tpu_torch.train.state import (
+    TrainState,
+    clip_by_global_norm_,
+    create_train_state,
+    make_optimizer,
+)
+from i2pnet_tpu_torch.train.step import make_train_step
+
+__all__ = [
+    "TrainState",
+    "clip_by_global_norm_",
+    "create_train_state",
+    "make_optimizer",
+    "make_train_step",
+]

@@ -1,0 +1,100 @@
+"""The free-point train step (port of ``i2pnet_tpu/train/step.py``).
+
+One step is forward in train mode (batch-statistics BatchNorm, which moves
+the running statistics, and head dropout), the loss, backward, optional
+global-norm clipping, Adam with coupled L2, and the schedule. Everything
+stays on the model's device: the metrics are device tensors and the step
+makes no host synchronisation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from i2pnet_tpu_torch.config import I2PNetConfig
+from i2pnet_tpu_torch.losses import projection_mask_loss, registration_loss
+from i2pnet_tpu_torch.train.state import TrainState, clip_by_global_norm_
+
+
+def _free_point_loss_fn(model, cfg: I2PNetConfig, img_size=None, train_target: str = "all"):
+    """loss(batch, generator) -> (loss, metrics), as ``_free_point_loss_fn``
+    of the JAX package. train_target picks the loss composition: 'all' is
+    registration + 1.5 * mask loss, 'regist' registration only, 'class' the
+    mask loss only (the port's model has no mask heads yet, so 'class'
+    raises and the others reduce to the registration loss)."""
+    if train_target not in ("all", "regist", "class"):
+        raise ValueError(f"train_target must be all|regist|class, got {train_target}")
+
+    def loss_fn(batch, generator):
+        hw = img_size or tuple(batch["rgb"].shape[1:3])
+        if batch.get("gt_project") is not None or cfg.ground_truth_projection_mask:
+            raise NotImplementedError("projection masks (gt_project) are not ported yet")
+        out = model(
+            batch["rgb"], batch["lidar"], batch["intrinsic"],
+            lidar_feature=batch.get("lidar_feats"), raw_xyz=batch.get("raw_xyz"),
+            generator=generator,
+        )
+        reg_loss, loss_q, loss_x = registration_loss(
+            out["out3"], out["out4"], batch["decalib_q_gt"], batch["decalib_t_gt"],
+            out["sx"], out["sq"], l1_trans=cfg.l1_trans_loss,
+        )
+        pl3, pl4 = (
+            projection_mask_loss(
+                out.get(key), batch["intrinsic"], hw, batch["decalib_q_gt"],
+                batch["decalib_t_gt"], focal=cfg.focal_mask_loss, focal_gamma=cfg.focal_gamma,
+                sigmoid=cfg.mask_sigmoid,
+            )
+            for key in ("pm3", "pm4")
+        )
+        if pl3 is not None and pl4 is not None:
+            mask_loss = 1.6 * pl4 + 0.8 * pl3
+        else:
+            mask_loss = pl4 if pl3 is None else pl3
+        if train_target == "class":
+            if mask_loss is None:
+                raise ValueError("train_target='class' needs mask heads enabled")
+            loss = mask_loss
+        else:
+            loss = reg_loss
+            if mask_loss is not None and train_target == "all":
+                loss = loss + 1.5 * mask_loss
+        metrics = {
+            "loss": loss,
+            "loss_q": loss_q,
+            "loss_x": loss_x,
+            "loss_mask": mask_loss if mask_loss is not None else torch.zeros_like(loss),
+            "sx": out["sx"].reshape(()),
+            "sq": out["sq"].reshape(()),
+        }
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    return loss_fn
+
+
+def make_train_step(model, cfg: I2PNetConfig, img_size: Optional[Tuple[int, int]] = None,
+                    train_target: str = "all"):
+    """Returns ``train_step(state, batch, generator=None) -> metrics``.
+
+    batch: dict of tensors on the model's device: rgb (B,H,W,3), lidar
+    (B,N,3), intrinsic (B,3,3), decalib_q_gt (B,4), decalib_t_gt (B,3);
+    optional lidar_feats and raw_xyz (B,N,3). generator: a
+    ``torch.Generator`` on that device for the dropout. ``state`` is a
+    ``TrainState`` over ``model``; the step updates it in place.
+    """
+    loss_fn = _free_point_loss_fn(model, cfg, img_size, train_target)
+
+    def train_step(state: TrainState, batch: dict, generator=None) -> dict:
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, generator)
+        loss.backward()
+        if state.clip > 0:
+            clip_by_global_norm_(model.parameters(), state.clip)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return metrics
+
+    return train_step

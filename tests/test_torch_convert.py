@@ -40,7 +40,7 @@ def test_bridge_covers_every_leaf_and_loads_strict(cfg, H, W):
     leaves = jax.tree_util.tree_leaves(variables)
 
     sd = flax_to_state_dict(variables)
-    model = I2PNet(cfg)
+    model = I2PNet(cfg, device="cpu")
     assert len(sd) == len(leaves) == len(model.state_dict())
     load_flax_variables(model, variables)  # strict=True
 

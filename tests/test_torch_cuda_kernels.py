@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, cv_cuda, fps_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +113,102 @@ def test_kernels_reject_what_they_cannot_take(dev):
     ops = list(_cv1_operands(dev, 1, 2, 8, 24, 16, 16, 16, 16, 16))
     with pytest.raises(ValueError):  # C = 24 is not a multiple of 16
         cv_cuda.cv1_cuda(*ops)
+
+
+# the train-encoder kernels (ops/conv_train_cuda.py): B, H, W, cin, cout
+TRAIN_CONV_CASES = [
+    (2, 16, 32, 3, 16),    # b0: cin = 3, padded in shared memory
+    (2, 16, 32, 16, 16),
+    (2, 16, 32, 16, 32),
+    (1, 8, 16, 64, 128),
+    (1, 37, 45, 8, 24),    # ragged tiles, odd sizes, cout % 16 != 0
+    (2, 24, 80, 64, 64),   # the last stage's width
+]
+
+
+def _bf16(dev, rng, *shape, s=1.0):
+    return torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", TRAIN_CONV_CASES)
+def test_train_conv_kernels_match_plain(dev, B, H, W, cin, cout):
+    """(a) forward and, with cin and cout swapped, dx; (b) dw, twice,
+    bit-identical (a fixed order of sums, no atomics)."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(cin * cout + H)
+    x = _bf16(dev, rng, B, H, W, cin)
+    w = _bf16(dev, rng, cout, 3, 3, cin, s=0.3)
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+    g = _bf16(dev, rng, B, H, W, cout)
+    y = ct.conv_fwd_cuda(x, w, b)
+    ref = ct.conv_fwd_plain(x, w, b)
+    # f32 sums in another order may flip a bf16 rounding: one bf16 ulp of
+    # the magnitude, as the eval encoder block
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert float((y.float() - ref.float()).abs().max()) <= 0.01 * max(float(ref.float().abs().max()), 1.0)
+    if cin % 8 == 0:  # dx: the conv from cout channels back to cin
+        wt = w.flip(1, 2).permute(3, 1, 2, 0).contiguous()  # (cin, 3, 3, cout)
+        dx, ref = ct.conv_dx_cuda(g, wt), ct.conv_dx_plain(g, wt)
+        assert dx.shape == (B, H, W, cin)
+        assert float((dx.float() - ref.float()).abs().max()) <= 0.01 * max(float(ref.float().abs().max()), 1.0)
+    dw, dw2 = ct.conv_dw_cuda(x, g), ct.conv_dw_cuda(x, g)
+    ref = ct.conv_dw_plain(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    # f32 sums over B*H*W products in another order: the JAX kernel's bar
+    # (tests/test_conv_pallas_train.py), 2e-3 of the largest entry
+    assert float((dw - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
+
+
+BN_POOL_CASES = [
+    # B, H, W, C, stride, ties
+    (2, 16, 32, 8, 1, False),
+    (2, 16, 32, 8, 2, True),
+    (2, 16, 32, 16, 1, True),
+    (1, 7, 9, 8, 2, False),    # odd sizes: the pad never wins
+    (1, 7, 9, 24, 1, True),
+    (1, 24, 80, 128, 2, False),
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,stride,ties", BN_POOL_CASES)
+def test_bn_pool_kernels_match_plain(dev, B, H, W, C, stride, ties):
+    """(c) out and taps, and (d) dz, bit for bit: compares of the same
+    bf16-rounded values, the affine rounded twice on both sides, dz summed
+    in tap order on both sides."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(C * H + stride)
+    y = rng.normal(size=(B, H, W, C))
+    if ties:
+        y = np.round(y * 2) / 2
+    y = torch.from_numpy(y.astype(np.float32)).to(dev, torch.bfloat16)
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+    sh = torch.from_numpy((0.1 * rng.normal(size=C)).astype(np.float32)).to(dev)
+    out, taps = ct.bn_pool_fwd_cuda(y, sc, sh, stride)
+    out_ref, taps_ref = ct.bn_pool_fwd_plain(y, sc, sh, stride)
+    assert torch.equal(out, out_ref) and torch.equal(taps, taps_ref)
+    g = _bf16(dev, rng, *out.shape)
+    dz = ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, ct.bn_pool_bwd_plain(y, sc, sh, taps, g, stride))
+
+
+def test_train_kernels_reject_what_they_cannot_take(dev):
+    ct = conv_train_cuda
+    bf = torch.bfloat16
+    x = torch.zeros(1, 8, 8, 16, device=dev, dtype=bf)
+    with pytest.raises(ValueError):  # 12 output channels: not a multiple of 8
+        ct.conv_fwd_cuda(x, torch.zeros(12, 3, 3, 16, device=dev, dtype=bf), torch.zeros(12, device=dev))
+    with pytest.raises(ValueError):  # f32 input
+        ct.conv_fwd_cuda(x.float(), torch.zeros(16, 3, 3, 16, device=dev, dtype=bf), None)
+    with pytest.raises(ValueError):  # a CPU tensor
+        ct.conv_dw_cuda(x.cpu(), x.cpu())
+    with pytest.raises(ValueError):  # stride 3
+        ct.bn_pool_fwd_cuda(x, torch.ones(16, device=dev), torch.zeros(16, device=dev), 3)
+    y = torch.zeros(1, 8, 8, 12, device=dev, dtype=bf)
+    with pytest.raises(ValueError):  # 12 channels: not a multiple of 8
+        ct.bn_pool_fwd_cuda(y, torch.ones(12, device=dev), torch.zeros(12, device=dev), 1)
+    taps = torch.zeros(1, 4, 4, 16, device=dev, dtype=torch.uint8)
+    with pytest.raises(ValueError):  # a cotangent of the wrong shape
+        ct.bn_pool_bwd_cuda(x, torch.ones(16, device=dev), torch.zeros(16, device=dev), taps,
+                            torch.zeros(1, 8, 8, 16, device=dev, dtype=bf), 2)

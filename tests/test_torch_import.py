@@ -1,4 +1,6 @@
-"""The port imports torch and never jax.
+"""The port imports torch and never jax, nor any module of the JAX package
+(``i2pnet_tpu``), not even one that imports no jax; nor does
+``chip_smoke.py``, with every import it makes anywhere in the file.
 
 Run in a subprocess: this test process already holds jax (conftest.py)."""
 
@@ -9,13 +11,22 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import importlib, pkgutil, sys
+import ast, importlib, pkgutil, sys
 import i2pnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(i2pnet_tpu_torch.__path__, "i2pnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+tree = ast.parse(open("chip_smoke.py").read())
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        for alias in node.names:
+            importlib.import_module(alias.name)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+        importlib.import_module(node.module)
 print(len(names))
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "i2pnet_tpu")
+assert not jax_package, jax_package
 assert "torch" in sys.modules
 """
 
@@ -28,5 +39,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (17 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 17
+    # the walk found the whole package (22 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 22

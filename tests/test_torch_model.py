@@ -59,7 +59,8 @@ def slice_run(request):
         mp.setenv("I2PNET_FUSED_EVAL", "interpret")
         mp.setenv("I2PNET_FUSED_CV", "interpret")
         ref = jm.apply(v, *inputs, train=False)
-    return request.param, {k: n(ref[k]) for k in ("out3", "out4")}, port(I2PNet(cfg), v), inputs
+    model = port(I2PNet(cfg, device="cpu"), v)
+    return request.param, {k: n(ref[k]) for k in ("out3", "out4")}, model, inputs
 
 
 def test_slice_matches_jax(slice_run):
@@ -103,9 +104,15 @@ def test_slice_routes_the_fused_paths_in_bf16(slice_run, monkeypatch):
 
 
 def test_model_refuses_unported_branches():
+    """The unported branches raise; a train-mode forward (an nn.Module
+    starts in training mode) runs with a dropout generator and moves every
+    BatchNorm's running statistics."""
     for kw in (dict(efgh=True), dict(use_projection_mask=True), dict(cost_volume_corr_func="concat")):
         with pytest.raises(NotImplementedError):
-            I2PNet(dataclasses.replace(I2PNetConfig.tiny(), **kw))
-    model = I2PNet(I2PNetConfig.tiny())  # nn.Module starts in training mode
-    with pytest.raises(NotImplementedError):
-        model(*map(t, _inputs()))
+            I2PNet(dataclasses.replace(I2PNetConfig.tiny(), **kw), device="cpu")
+    model = I2PNet(I2PNetConfig.tiny(), device="cpu")
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    out = model(*map(t, _inputs()), generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["out3"]).all() and out["out3"].requires_grad
+    moved = {k for k, b in model.named_buffers() if not torch.equal(b, before[k])}
+    assert moved == set(before)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``i2pnet_tpu_torch``).
 
-Drives the port's two paths on one CUDA card with the shipped config in
-bf16 at B=8, a 384x1280 image and 8192 LiDAR points (the shapes
-``bench.py`` times), with random weights from a seeded ``torch.Generator``:
-the free-point I2PNet eval forward, and the free-point train step (forward
-in train mode with dropout, loss, backward, Adam). Phases, each raising on
+Drives the port's three paths on one CUDA card with random weights from a
+seeded ``torch.Generator``, at the shapes ``bench.py`` times: the
+free-point I2PNet eval forward and the free-point train step (forward in
+train mode with dropout, loss, backward, Adam), both with the shipped
+config in bf16 at B=8, a 384x1280 image and 8192 LiDAR points; and the
+projection-family I2PNetProj eval forward, the shipped proj config in bf16
+at B=8, a 160x512 image and 150,000 raw points a row (120,000 real, the
+tail zero), projected to a 64x1800 range image. Phases, each raising on
 failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
@@ -30,12 +33,23 @@ failure:
    and bit-identical when repeated, bn_pool out, taps and dz exactly;
 7. time the train step (median of 3 windows of 20 steps) and each train
    kernel's launches of one step by graph replay, beside its plain version
-   and a PyTorch library call for the same function where one exists.
+   and a PyTorch library call for the same function where one exists;
+8. proj eval: run the forward; check out3/out4 (finite, unit quaternions,
+   a second forward identical) and the launches in one forward (select 5,
+   encoder block 15, FPS 0, cv1 0);
+9. hold every select call of that forward against its plain version
+   exactly, and every encoder-block call at the proj image's shapes within
+   0.01 * max(|ref|, 1);
+10. time the proj forward (median of 3 windows of 20) and under CUDA-graph
+   replay (which also proves it has no host synchronisation), and the
+   select kernel's launches of one forward by graph replay beside its plain
+   version and its bound.
 
-Prints the kernels' JSON line (times, bounds, launches, errors), then as
-its last line ``{"ok": true, "device": {...}}``. Run: ``python3
-chip_smoke.py`` (``--profile`` adds torch.profiler breakdowns of the
-forward and of the train step). It never runs on the CPU: without a CUDA
+Prints the kernels' JSON line (times, bounds, launches on the path each
+row was timed on, and the launches on every path), then as its last line
+``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
+(``--profile`` adds torch.profiler breakdowns of the free forward, the
+train step and the proj forward). It never runs on the CPU: without a CUDA
 device it exits non-zero.
 """
 
@@ -49,6 +63,10 @@ import sys
 import time
 
 BATCH, IMG_H, IMG_W = 8, 384, 1280
+# bench.py's proj inputs: raw points a row (the last PROJ_PAD of them zero),
+# the image, and the decalibration of the cloud
+PROJ_POINTS, PROJ_PAD, PROJ_H, PROJ_W = 150000, 30000, 160, 512
+PROJ_Q, PROJ_T = (0.999, 0.0, 0.04, 0.0), (1.0, 0.0, 2.0)
 WINDOWS, ITERS = 3, 20
 KERNEL_REPEATS = 5
 SEED = 0
@@ -59,7 +77,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 TRAIN_LAUNCHES = {"fps": 4, "encoder_block": 0, "cv1": 0, "conv_fwd": 15, "conv_dx": 14,
-                  "conv_dw": 15, "bn_pool_fwd": 15, "bn_pool_bwd": 15}
+                  "conv_dw": 15, "bn_pool_fwd": 15, "bn_pool_bwd": 15, "select": 0}
+PROJ_LAUNCHES = {"fps": 0, "encoder_block": 15, "cv1": 0, "conv_fwd": 0, "conv_dx": 0,
+                 "conv_dw": 0, "bn_pool_fwd": 0, "bn_pool_bwd": 0, "select": 5}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -127,6 +147,27 @@ def make_inputs(cfg, device):
     return tuple(torch.from_numpy(a).to(device) for a in (rgb, lidar, k))
 
 
+def make_proj_inputs(device):
+    """The proj inputs bench.py makes, from numpy with seed 0: (rgb,
+    decalibrated cloud, raw cloud, intrinsic)."""
+    import numpy as np
+    import torch
+
+    from i2pnet_tpu_torch.ops import quaternion as Q
+
+    rng = np.random.default_rng(SEED)
+    raw = rng.normal(size=(BATCH, PROJ_POINTS, 3)).astype(np.float32) * 15
+    raw[:, PROJ_POINTS - PROJ_PAD:] = 0.0
+    rgb = rng.normal(size=(BATCH, PROJ_H, PROJ_W, 3)).astype(np.float32)
+    k = np.tile(np.array([[[350.0, 0, 256], [0, 350.0, 80], [0, 0, 1]]], np.float32),
+                (BATCH, 1, 1))
+    rgb, raw, k = (torch.from_numpy(a).to(device) for a in (rgb, raw, k))
+    q = torch.tensor([PROJ_Q], device=device).repeat(BATCH, 1)
+    t = torch.tensor([PROJ_T], device=device).repeat(BATCH, 1)
+    lidar = Q.warp_points(raw, q, t) * (torch.sum(raw**2, -1, keepdim=True) > 0)
+    return rgb, lidar, raw, k
+
+
 class Capture:
     """Records each kernel wrapper's arguments and result during a run."""
 
@@ -186,6 +227,19 @@ BOUNDS = {
     "bn_pool_bwd": lambda a, out: bound(nbytes(a[0], a[1], a[2], a[3], a[4], out),
                                         13.0 * out.numel(), F32_FLOPS),
 }
+
+
+def select_ops(a, m) -> float:
+    """The select kernel's f32 operations on this run's data: per slot its
+    distance and validity (13), per argmin pass 2 per slot; a query runs a
+    pass per selected slot, and one more that finds none unless all K hit."""
+    S = a[4][0] * a[4][1]
+    distinct = (m[..., :S] > 0).sum(-1)
+    passes = float((distinct + (distinct < a[5]).long()).sum())
+    return 13.0 * m.shape[0] * m.shape[1] * S + 2.0 * S * passes
+
+
+BOUNDS["select"] = lambda a, out: bound(nbytes(a[0], out), select_ops(a, out), F32_FLOPS)
 
 
 def cv1_flops(a) -> float:
@@ -285,6 +339,45 @@ def kernel_row(k, launches, err, calls, card):
     }
 
 
+def check_outputs(out, out2, label: str) -> None:
+    """out3/out4 finite (B, 7) with unit quaternions, and a second forward's
+    out3 identical."""
+    import torch
+
+    for key in ("out3", "out4"):
+        o = out[key]
+        check(tuple(o.shape) == (BATCH, 7) and bool(torch.isfinite(o).all()),
+              f"{label} {key} not finite (B,7)")
+        qn = torch.linalg.norm(o[:, :4], dim=-1)
+        check(bool(((qn - 1).abs() <= 1e-3).all()), f"{label} {key} quaternion norms {qn.tolist()}")
+    check(torch.equal(out["out3"], out2["out3"]), f"{label}: a second forward gave another out3")
+    print(f"{label} out3[0] = {[round(v, 6) for v in out['out3'][0].tolist()]}")
+
+
+def eval_kernel_error(name, plain, calls) -> float:
+    """Hold one eval kernel's calls against its plain version; the worst
+    max abs error. FPS and select exactly; the encoder block within 0.01 *
+    max(|ref|, 1) (one bf16 ulp of f32 sums in another order); cv1 within
+    5e-3."""
+    import torch
+
+    worst = 0.0
+    for args, got in calls:
+        ref = plain(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        if name in ("fps", "select"):
+            check(torch.equal(got, ref), f"{name} differs from its plain version at "
+                                         f"{tuple(args[0].shape)}, {args[1:]}")
+        elif name == "encoder_block":
+            bar = 0.01 * max(float(ref.float().abs().max()), 1.0)
+            check(err <= bar, f"encoder block {tuple(args[0].shape)}: {err} > {bar}")
+        else:
+            check(err <= 5e-3, f"cv1: max abs err {err} > 5e-3")
+    print(f"{name}: {len(calls)} calls match the plain version, max abs err {worst:.3e}")
+    return worst
+
+
 def train_kernel_error(name, fn, plain, calls) -> float:
     """Hold one train kernel's calls against its plain version; the worst
     max abs error. conv fwd/dx within 0.01 * max(|ref|, 1) (one bf16 ulp
@@ -321,9 +414,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from i2pnet_tpu_torch.config import I2PNetConfig
-    from i2pnet_tpu_torch.models import I2PNet, init_random_
-    from i2pnet_tpu_torch.ops import _build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
+                                      select_cuda)
     from i2pnet_tpu_torch.train import create_train_state, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -349,26 +443,32 @@ def main() -> int:
     ]
     for k in train_kernels:
         k.update(module=ct, fn=f"{k['name']}_cuda", plain=f"{k['name']}_plain")
-    all_kernels = eval_kernels + train_kernels
+    select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
+                  plain="selection_multiplicity_plain", src="select.cu",
+                  replaces="i2pnet_tpu/ops/select_pallas.py:47")
+    all_kernels = eval_kernels + train_kernels + [select]
+    single_modules = {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda,
+                      "select": select_cuda}
 
     def reset_counts():
-        for mod in (fps_cuda, conv_cuda, cv_cuda):
+        for mod in single_modules.values():
             mod.launches = 0
         for key in ct.launches:
             ct.launches[key] = 0
 
     def read_counts():
-        counts = {"fps": fps_cuda.launches, "encoder_block": conv_cuda.launches,
-                  "cv1": cv_cuda.launches}
+        counts = {name: mod.launches for name, mod in single_modules.items()}
         counts.update(ct.launches)
         return counts
 
     # --- phase 1: build the kernels, name the card
     t0 = time.perf_counter()
-    _build.build_all(sorted({k["src"][:-3] for k in all_kernels}))
-    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda):
+    sources = sorted({k["src"][:-3] for k in all_kernels})
+    _build.build_all(sources)
+    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda, select_cuda):
         mod._lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s for 5 kernel libraries (nvcc in parallel)")
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} kernel libraries "
+          f"(nvcc in parallel)")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -392,35 +492,17 @@ def main() -> int:
     print(f"launches in one forward: {eval_launches}")
     check(eval_launches == {"fps": 4, "encoder_block": 15, "cv1": 1},
           f"eval launch counts {eval_launches}")
-    check(all(counts[k["name"]] == 0 for k in train_kernels), f"train kernels at eval: {counts}")
-    for key in ("out3", "out4"):
-        o = out[key]
-        check(tuple(o.shape) == (BATCH, 7) and bool(torch.isfinite(o).all()), f"{key} not finite (B,7)")
-        qn = torch.linalg.norm(o[:, :4], dim=-1)
-        check(bool(((qn - 1).abs() <= 1e-3).all()), f"{key} quaternion norms {qn.tolist()}")
-    check(torch.equal(out["out3"], out2["out3"]), "a second forward gave another out3")
-    print(f"out3[0] = {[round(v, 6) for v in out['out3'][0].tolist()]}")
+    check(all(counts[k["name"]] == 0 for k in train_kernels + [select]),
+          f"train or proj kernels at free eval: {counts}")
+    check_outputs(out, out2, "free eval")
+    path_launches = {"free_eval": counts}
 
     # --- phase 3: every captured eval kernel call against its plain version
     errors = {}
     with torch.no_grad():
         for k in eval_kernels:
-            name, plain = k["name"], getattr(k["module"], k["plain"])
-            worst = 0.0
-            for args, got in captures[name].calls:
-                ref = plain(*args)
-                err = float((got.float() - ref.float()).abs().max())
-                worst = max(worst, err)
-                if name == "fps":
-                    check(torch.equal(got, ref), f"fps indices differ at npoint={args[1]}")
-                elif name == "encoder_block":
-                    bar = 0.01 * max(float(ref.float().abs().max()), 1.0)
-                    check(err <= bar, f"encoder block {tuple(args[0].shape)}: {err} > {bar}")
-                else:
-                    check(err <= 5e-3, f"cv1: max abs err {err} > 5e-3")
-            errors[name] = worst
-            print(f"{name}: {len(captures[name].calls)} calls match the plain version, "
-                  f"max abs err {worst:.3e}")
+            errors[k["name"]] = eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                                  captures[k["name"]].calls)
 
     # --- phase 4: eval timing on the card
     def forward():
@@ -471,6 +553,7 @@ def main() -> int:
         metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     train_launches = read_counts()
+    path_launches["free_train"] = train_launches
     hook.remove()
     print(f"launches in one train step: {train_launches}")
     check(train_launches == TRAIN_LAUNCHES, f"train launch counts {train_launches}")
@@ -541,6 +624,55 @@ def main() -> int:
                                    captures[k["name"]].calls, card))
     if "--profile" in sys.argv[1:]:
         profile_run(train_step, card, "train_step")
+
+    # --- phase 8: the proj eval forward, with its kernel calls captured
+    del tmodel, state, step, captures
+    pcfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    pmodel = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED)).eval()
+    pinputs = make_proj_inputs(dev)
+    block = next(k for k in eval_kernels if k["name"] == "encoder_block")
+    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in (block, select)}
+    with torch.no_grad():
+        reset_counts()
+        with captures["encoder_block"], captures["select"]:
+            out = pmodel(*pinputs)
+        torch.cuda.synchronize()
+        proj_launches = read_counts()
+        out2 = pmodel(*pinputs)
+        torch.cuda.synchronize()
+    path_launches["proj_eval"] = proj_launches
+    print(f"launches in one proj forward: {proj_launches}")
+    check(proj_launches == PROJ_LAUNCHES, f"proj launch counts {proj_launches}")
+    check_outputs(out, out2, "proj eval")
+
+    # --- phase 9: every select and encoder-block call against its plain version
+    with torch.no_grad():
+        errors["select"] = eval_kernel_error("select", select_cuda.selection_multiplicity_plain,
+                                             captures["select"].calls)
+        proj_block_err = eval_kernel_error("encoder_block", conv_cuda.conv_block_plain,
+                                           captures["encoder_block"].calls)
+    print(f"encoder block at the proj image's shapes "
+          f"{sorted({tuple(a[0].shape) for a, _ in captures['encoder_block'].calls})}: "
+          f"max abs err {proj_block_err:.3e}")
+
+    # --- phase 10: proj eval timing on the card
+    def proj_forward():
+        pmodel(*pinputs)
+
+    with torch.no_grad():
+        proj_forward()
+        pfwd_ms, spread = windows_ms(proj_forward)
+        print(f"proj forward: {pfwd_ms:.3f} ms/batch, {BATCH * 1000.0 / pfwd_ms:.2f} pairs/s "
+              f"(B={BATCH}, median of {WINDOWS}x{ITERS}, spread {spread:.1f}%) on {card}")
+        pgraph_ms = cuda_ms(graph_of(proj_forward).replay, ITERS)
+        print(f"proj forward under CUDA-graph replay: {pgraph_ms:.3f} ms/batch, "
+              f"{BATCH * 1000.0 / pgraph_ms:.2f} pairs/s on {card}")
+        rows.append(kernel_row(select, proj_launches["select"], errors["select"],
+                               captures["select"].calls, card))
+        if "--profile" in sys.argv[1:]:
+            profile_run(proj_forward, card, "proj_forward")
+    for row in rows:
+        row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}
     print(json.dumps({"kernels": rows}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -22,7 +22,7 @@ from torch import nn
 from i2pnet_tpu_torch.config import I2PNetConfig
 from i2pnet_tpu_torch.nn.costvolume import CostVolume
 from i2pnet_tpu_torch.nn.heads import FlowPredictor, PoseHead
-from i2pnet_tpu_torch.nn.layers import BatchNorm, RGBEncoder
+from i2pnet_tpu_torch.nn.layers import BatchNorm, BatchStatsNorm, RGBEncoder
 from i2pnet_tpu_torch.nn.pointnet import PointNetSetAbstraction
 from i2pnet_tpu_torch.nn.upconv import SetUpconv
 from i2pnet_tpu_torch.ops import quaternion as Q
@@ -190,15 +190,16 @@ class I2PNet(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill a model's weights from ``generator``: Dense/Conv weights
-    lecun-normal, their biases and every BatchNorm's affine and running
-    statistics drawn near their neutral values so the eval folds are
-    exercised. Draws on the CPU, in module order, so a seed gives the same
-    weights on any device."""
+    lecun-normal, their biases, every BatchNorm's affine and running
+    statistics and every BatchStatsNorm's affine drawn near their neutral
+    values so the eval folds are exercised. Draws on the CPU, in module
+    order, so a seed gives the same weights on any device."""
     for module in model.modules():
-        if isinstance(module, BatchNorm):
+        if isinstance(module, (BatchNorm, BatchStatsNorm)):
             n = module.weight.numel()
             module.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=generator))
             module.bias.copy_(0.1 * torch.randn(n, generator=generator))
+        if isinstance(module, BatchNorm):
             module.running_mean.copy_(0.1 * torch.randn(n, generator=generator))
             module.running_var.copy_(0.5 + torch.rand(n, generator=generator))
         elif isinstance(module, (nn.Linear, nn.Conv2d)):

@@ -42,7 +42,9 @@ def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.1)
+    """flax's ``leaky_relu(x, 0.1)``: JAX rounds the weak-typed slope to x's
+    dtype before the product, so in bf16 the slope is 0.10009765625."""
+    return F.leaky_relu(x, 0.10009765625 if x.dtype == torch.bfloat16 else 0.1)
 
 
 class Dense(nn.Linear):
@@ -96,14 +98,47 @@ class BatchNorm(nn.Module):
         return dense.weight.t().float() * s[None, :], (dense.bias - self.running_mean) * s + self.bias
 
 
+class BatchStatsNorm(nn.Module):
+    """flax ``BatchStatsNorm`` over the last axis: normalise by the current
+    batch's statistics in training and at eval alike (the projection
+    family's ``track_running_stats=False``), learned scale and bias, no
+    state. The statistics are f32 with the two-pass variance
+    ``mean((x - mean)**2)`` (``jnp.var``), not ``BatchNorm``'s clipped fast
+    one. Without ``dtype`` the normalisation is f32; with it, it runs in
+    that dtype: ``(x - mean) * rsqrt(var + eps)``, then ``* scale + bias``,
+    each operand cast to it."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dims)
+        var = torch.square(xf - mean).mean(dims)
+        rs = torch.rsqrt(var + BN_EPS)
+        if self.dtype is not None:
+            dt = self.dtype
+            y = (x.to(dt) - mean.to(dt)) * rs.to(dt)
+            return y * self.weight.to(dt) + self.bias.to(dt)
+        return (xf - mean) * rs * self.weight + self.bias
+
+
 class PointwiseConv(nn.Module):
-    """Dense (+ BN) (+ activation) over the channel axis."""
+    """Dense (+ BN) (+ activation) over the channel axis. ``bn_stats=False``
+    takes ``BatchStatsNorm`` (``BatchStatsNorm_0``, as flax names it) in
+    place of ``BatchNorm``."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = False,
-                 activation: Optional[str] = "leaky", dtype: Optional[torch.dtype] = None):
+                 activation: Optional[str] = "leaky", dtype: Optional[torch.dtype] = None,
+                 bn_stats: bool = True):
         super().__init__()
         self.Dense_0 = Dense(in_features, features)
-        self.BatchNorm_0 = BatchNorm(features) if use_bn else None
+        self.BatchNorm_0 = BatchNorm(features) if use_bn and bn_stats else None
+        self.BatchStatsNorm_0 = BatchStatsNorm(features, dtype) if use_bn and not bn_stats else None
         self.activation = activation
         self.dtype = dtype
 
@@ -112,6 +147,8 @@ class PointwiseConv(nn.Module):
         if self.BatchNorm_0 is not None:
             # with a compute dtype the normalisation's result is in it
             x = self.BatchNorm_0(x, self.dtype)
+        elif self.BatchStatsNorm_0 is not None:
+            x = self.BatchStatsNorm_0(x)
         if self.activation == "leaky":
             x = leaky_relu(x)
         elif self.activation == "relu":
@@ -127,11 +164,12 @@ class PointwiseMLP(nn.Module):
     """A stack of PointwiseConv layers."""
 
     def __init__(self, in_features: int, features: Sequence[int], use_bn: bool = True,
-                 activation: Optional[str] = "leaky", dtype: Optional[torch.dtype] = None):
+                 activation: Optional[str] = "leaky", dtype: Optional[torch.dtype] = None,
+                 bn_stats: bool = True):
         super().__init__()
         self.layers = []
         for i, f in enumerate(features):
-            layer = PointwiseConv(in_features, f, use_bn, activation, dtype)
+            layer = PointwiseConv(in_features, f, use_bn, activation, dtype, bn_stats)
             self.add_module(f"PointwiseConv_{i}", layer)
             self.layers.append(layer)
             in_features = f

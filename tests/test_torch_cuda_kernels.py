@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, cv_cuda, fps_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, cv_cuda, fps_cuda, select_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +212,64 @@ def test_train_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError):  # a cotangent of the wrong shape
         ct.bn_pool_bwd_cuda(x, torch.ones(16, device=dev), torch.zeros(16, device=dev), taps,
                             torch.zeros(1, 8, 8, 16, device=dev, dtype=bf), 2)
+
+
+def _range_grid(rng, B, h2, w2, holes=0.3):
+    """A range image as the projection gives one: a cylinder of radius 10
+    (neighbouring cells 0.035 apart across, 0.05 down) with a little noise,
+    quantised so that equal distances abound, and empty cells."""
+    az = np.linspace(0, 2 * np.pi, w2, endpoint=False)[None, :]
+    z = 0.05 * np.arange(h2)[:, None] + 0 * az
+    xyz = np.stack([10 * np.cos(az) + 0 * z, 10 * np.sin(az) + 0 * z, z], -1)
+    xyz = xyz[None] + 0.01 * rng.normal(size=(B, h2, w2, 3))
+    xyz = np.round(xyz * 64) / 64
+    xyz[rng.random((B, h2, w2)) < holes] = 0.0
+    return xyz.astype(np.float32)
+
+
+# B, (h2, w2), (out_h, out_w), qstride, kernel, K, distance: the four cases
+# of tests/test_dense_window.py, then the first level of the shipped proj
+# config (64x1800 -> 16x225) on a range-image-like grid and on a random one
+SELECT_CASES = [
+    (2, (8, 16), (4, 8), (2, 2), (3, 5), 4, 1.5),
+    (2, (8, 16), (8, 16), (1, 1), (3, 3), 4, 1.0),
+    (2, (8, 16), (2, 4), (4, 4), (5, 5), 8, 2.0),
+    (2, (8, 16), (4, 8), (2, 2), (3, 3), 16, 1.5),  # K > khw: sentinel / copy fill
+    (2, (64, 1800), (16, 225), (4, 8), (9, 15), 32, 0.75),
+    (1, (64, 1800), (16, 225), (4, 8), (9, 15), 32, 60.0),
+]
+
+
+@pytest.mark.parametrize("B,grid,out_hw,qstride,kernel,K,distance", SELECT_CASES)
+def test_select_kernel_matches_plain(dev, B, grid, out_hw, qstride, kernel, K, distance):
+    """Exact: the same distances without FMAs, ties to the lowest slot."""
+    rng = np.random.default_rng(grid[1] + K)
+    if grid[1] > 100:
+        xyz = _range_grid(rng, B, *grid) if distance < 10 else \
+            np.round(rng.normal(size=(B, *grid, 3)) * 40).astype(np.float32)
+    else:
+        xyz = rng.normal(size=(B, *grid, 3)).astype(np.float32)
+        xyz[rng.random((B, *grid)) < 0.3] = 0.0
+        xyz = np.round(xyz * 4) / 4
+    xyz = torch.from_numpy(xyz).to(dev)
+    before = select_cuda.launches
+    got = select_cuda.selection_multiplicity_cuda(xyz, *out_hw, qstride, kernel, K, distance)
+    torch.cuda.synchronize()
+    assert select_cuda.launches == before + 1
+    ref = select_cuda.selection_multiplicity_plain(xyz, *out_hw, qstride, kernel, K, distance)
+    assert got.shape == (B, out_hw[0] * out_hw[1], kernel[0] * kernel[1] + 1)
+    assert torch.equal(got, ref)
+    assert bool((got.sum(-1) == K).all())
+    hits = (got[..., :-1] > 0).sum(-1)
+    assert int(hits.max()) > 1  # some queries found several neighbours
+
+
+def test_select_kernel_rejects_what_it_cannot_take(dev):
+    with pytest.raises(ValueError):  # four channels
+        select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 4, device=dev), 4, 4, (2, 2),
+                                                (3, 3), 4, 1.0)
+    with pytest.raises(ValueError):  # 17 x 17 slots: more than 255
+        select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 3, device=dev), 4, 4, (2, 2),
+                                                (17, 17), 4, 1.0)
+    with pytest.raises(ValueError):  # a CPU tensor
+        select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 3), 4, 4, (2, 2), (3, 3), 4, 1.0)

@@ -10,7 +10,16 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PROBE = """
+# the projection family's modules, loaded with the rest of the package
+NEW = [
+    "i2pnet_tpu_torch.ops.projection",
+    "i2pnet_tpu_torch.ops.dense_window",
+    "i2pnet_tpu_torch.ops.select_cuda",
+    "i2pnet_tpu_torch.nn.proj_backbone",
+    "i2pnet_tpu_torch.models.i2pnet_proj",
+]
+
+PROBE = f"NEW = {NEW!r}\n" + """
 import ast, importlib, pkgutil, sys
 import i2pnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(i2pnet_tpu_torch.__path__, "i2pnet_tpu_torch.")]
@@ -24,6 +33,8 @@ for node in ast.walk(tree):
     elif isinstance(node, ast.ImportFrom) and node.module:
         importlib.import_module(node.module)
 print(len(names))
+for name in NEW:
+    assert name in names, name
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "i2pnet_tpu")
 assert not jax_package, jax_package
@@ -39,5 +50,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (22 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 22
+    # the walk found the whole package (27 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 27

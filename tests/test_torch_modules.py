@@ -105,3 +105,17 @@ def test_pose_head_eval():
     feat = rng.normal(size=(2, 20, 5)).astype(np.float32)
     jhead = JaxPoseHead(mlp1=(), mlp2=(), hidden=16)
     _check(jhead, PoseHead(8, 16), (pred, mask, xyz, feat), {"train": False}, {})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_leaky_relu_matches_flax_exactly(dtype):
+    """In bf16 JAX multiplies by the slope rounded to bf16 (0.10009765625);
+    a product by 0.1 rounds some negative values differently."""
+    import jax.numpy as jnp
+
+    from i2pnet_tpu_torch.nn.layers import leaky_relu
+
+    x = np.random.default_rng(7).normal(size=4096).astype(np.float32)
+    ref = jax.nn.leaky_relu(jnp.asarray(x, dtype), 0.1)
+    got = leaky_relu(t(x).to(getattr(torch, dtype)))
+    np.testing.assert_array_equal(n(got), n(ref))

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``i2pnet_tpu_torch``).
 
-Drives the port's three paths on one CUDA card with random weights from a
+Drives the port's four paths on one CUDA card with random weights from a
 seeded ``torch.Generator``, at the shapes ``bench.py`` times: the
 free-point I2PNet eval forward and the free-point train step (forward in
 train mode with dropout, loss, backward, Adam), both with the shipped
 config in bf16 at B=8, a 384x1280 image and 8192 LiDAR points; and the
-projection-family I2PNetProj eval forward, the shipped proj config in bf16
-at B=8, a 160x512 image and 150,000 raw points a row (120,000 real, the
-tail zero), projected to a 64x1800 range image. Phases, each raising on
-failure:
+projection-family I2PNetProj eval forward and train step, the shipped proj
+config in bf16 at B=8, a 160x512 image and 150,000 raw points a row
+(120,000 real, the tail zero), projected to a 64x1800 range image. Phases,
+each raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -43,20 +43,39 @@ failure:
 10. time the proj forward (median of 3 windows of 20) and under CUDA-graph
    replay (which also proves it has no host synchronisation), and the
    select kernel's launches of one forward by graph replay beside its plain
-   version and its bound.
+   version and its bound;
+11. proj train, the default pool backward (idx): one step (identity
+   decalibration, dropout on, Adam); check the launches (conv fwd 15, dx
+   14, dw 15, bn_pool fwd 15, bwd 15, every other kernel 0), a finite loss,
+   that every parameter, sx, sq and RGB BatchNorm statistic moved, and that
+   a second run from the same seeds repeats the first step bit for bit
+   (loss, every gradient, every parameter); time the step as in 7;
+12. ``I2PNET_POOL_BWD=pallas``: one proj step (no-tap bn_pool fwd 15,
+   recompute bwd 15, the idx pair 0), every call of those two kernels equal
+   to its plain version, and ``fused_stage_train`` at the shapes of the
+   proj encoder's first two stages bit-identical (out, dx where the input
+   has one, dw, db, dgamma, dbeta) under pallas and idx for one cotangent;
+13. a train-mode proj forward under ``torch.no_grad()``: the no-tap
+   forward in every block (15), the idx forward 0;
+14. ``I2PNET_FUSED_TRAIN=0 I2PNET_POOL_PALLAS=1``: one proj step on the
+   native chain (pool route 10 at stride 1, 5 at stride 2, the train
+   kernels 0), every route call equal to its plain version; then the
+   pallas pair and the route kernels timed as in 7 (the route's library
+   call is ``max_pool2d_with_indices_backward`` on the same routing).
 
 Prints the kernels' JSON line (times, bounds, launches on the path each
 row was timed on, and the launches on every path), then as its last line
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler breakdowns of the free forward, the
-train step and the proj forward). It never runs on the CPU: without a CUDA
-device it exits non-zero.
+train step, the proj forward and the proj train step). It never runs on
+the CPU: without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -76,10 +95,21 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-TRAIN_LAUNCHES = {"fps": 4, "encoder_block": 0, "cv1": 0, "conv_fwd": 15, "conv_dx": 14,
-                  "conv_dw": 15, "bn_pool_fwd": 15, "bn_pool_bwd": 15, "select": 0}
-PROJ_LAUNCHES = {"fps": 0, "encoder_block": 15, "cv1": 0, "conv_fwd": 0, "conv_dx": 0,
-                 "conv_dw": 0, "bn_pool_fwd": 0, "bn_pool_bwd": 0, "select": 5}
+NO_LAUNCHES = dict.fromkeys(
+    ("fps", "encoder_block", "cv1", "conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd",
+     "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1", "pool_route_s2", "select"), 0)
+TRAIN_LAUNCHES = dict(NO_LAUNCHES, fps=4, conv_fwd=15, conv_dx=14, conv_dw=15, bn_pool_fwd=15,
+                      bn_pool_bwd=15)
+PROJ_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15, select=5)
+# the proj train step on each pool backend: the default (idx), pallas (no
+# taps, recomputed), a forward without gradient, and the native chain
+# (I2PNET_FUSED_TRAIN=0) with the routed pool
+PROJ_TRAIN_LAUNCHES = dict(NO_LAUNCHES, conv_fwd=15, conv_dx=14, conv_dw=15, bn_pool_fwd=15,
+                           bn_pool_bwd=15)
+PROJ_PALLAS_LAUNCHES = dict(NO_LAUNCHES, conv_fwd=15, conv_dx=14, conv_dw=15, bn_pool_fwd_notap=15,
+                            bn_pool_bwd_recompute=15)
+PROJ_NOGRAD_LAUNCHES = dict(NO_LAUNCHES, conv_fwd=15, bn_pool_fwd_notap=15)
+PROJ_ROUTED_LAUNCHES = dict(NO_LAUNCHES, pool_route_s1=10, pool_route_s2=5)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -226,7 +256,18 @@ BOUNDS = {
                                         4.0 * a[0].numel() + 9.0 * out[0].numel(), F32_FLOPS),
     "bn_pool_bwd": lambda a, out: bound(nbytes(a[0], a[1], a[2], a[3], a[4], out),
                                         13.0 * out.numel(), F32_FLOPS),
+    "bn_pool_fwd_notap": lambda a, out: bound(nbytes(a[0], a[1], a[2], out),
+                                              4.0 * a[0].numel() + 9.0 * out.numel(), F32_FLOPS),
+    # the activation recomputed once, a 9-tap scan per pooled cell, the
+    # gather and slope per input element
+    "bn_pool_bwd_recompute": lambda a, out: bound(
+        nbytes(a[0], a[1], a[2], a[3], out),
+        4.0 * a[0].numel() + 9.0 * a[3].numel() + 13.0 * out.numel(), F32_FLOPS),
+    # a compare per covering cell of every input element, an add per cell
+    "pool_route_s1": lambda a, out: bound(nbytes(a[0], a[1], out),
+                                          9.0 * out.numel() + a[1].numel(), F32_FLOPS),
 }
+BOUNDS["pool_route_s2"] = BOUNDS["pool_route_s1"]
 
 
 def select_ops(a, m) -> float:
@@ -276,7 +317,27 @@ def library_calls(name, calls):
         ops = [(x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)) for (x, g), _ in calls]
         return lambda: [torch.nn.grad.conv2d_weight(
             x, (g.shape[1], x.shape[1], 3, 3), g, padding=1) for x, g in ops]
+    if name.startswith("pool_route"):  # the pool's backward on the same routing
+        ops = [route_as_max_pool_indices(*a) for a, _ in calls]
+        return lambda: [torch.ops.aten.max_pool2d_with_indices_backward(
+            g, x, [3, 3], [s, s], [1, 1], [1, 1], False, idx) for g, x, idx, s in ops]
     return None  # FPS, the fused blocks, cv1, bn_pool: no single PyTorch call
+
+
+def route_as_max_pool_indices(argtap, ct, stride):
+    """The operands of ``max_pool2d_with_indices_backward`` for a route call:
+    the cotangent and a stand-in input as channels-last NCHW views, and the
+    flat first-max index h * W + w of every cell, from its tap."""
+    import torch
+
+    B, Ho, Wo, C = ct.shape
+    W = stride * Wo
+    tap = argtap.long()
+    oh = torch.arange(Ho, device=ct.device)[None, :, None, None]
+    ow = torch.arange(Wo, device=ct.device)[None, None, :, None]
+    idx = (oh * stride + tap // 3 - 1) * W + ow * stride + tap % 3 - 1
+    x = torch.empty(B, stride * Ho, W, C, dtype=ct.dtype, device=ct.device)
+    return ct.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), idx.permute(0, 3, 1, 2), stride
 
 
 def profile_run(fn, card: str, label: str, iters: int = 10) -> None:
@@ -324,6 +385,8 @@ def kernel_row(k, launches, err, calls, card):
     """Time one path's calls of a kernel by graph replay: kernel, plain
     version, library call; and its bound from this run's inputs."""
     fn, plain = getattr(k["module"], k["fn"]), getattr(k["module"], k["plain"])
+    if not calls:
+        raise RuntimeError(f"chip_smoke: no call of {k['name']} to time")
     k_ms = replay_ms(lambda: [fn(*a) for a, _ in calls])
     p_ms = replay_ms(lambda: [plain(*a) for a, _ in calls])
     lib = library_calls(k["name"], calls)
@@ -382,7 +445,7 @@ def train_kernel_error(name, fn, plain, calls) -> float:
     """Hold one train kernel's calls against its plain version; the worst
     max abs error. conv fwd/dx within 0.01 * max(|ref|, 1) (one bf16 ulp
     of f32 sums in another order); dw within 2e-3 * max|ref| and repeatable
-    bit for bit; bn_pool out, taps and dz exactly."""
+    bit for bit; bn_pool out, taps and dz, and the route's dx, exactly."""
     import torch
 
     worst = 0.0
@@ -398,12 +461,16 @@ def train_kernel_error(name, fn, plain, calls) -> float:
         if name == "conv_dw":
             check(err <= 2e-3 * scale, f"conv_dw {shape}: {err} > 2e-3 * {scale}")
             check(torch.equal(fn(*args), got), f"conv_dw {shape} not repeatable")
-        elif name == "bn_pool_bwd":
-            check(torch.equal(got, ref), f"bn_pool_bwd {shape}: max abs err {err}")
+        elif name in EXACT:
+            check(torch.equal(got, ref), f"{name} {shape}: max abs err {err}")
         elif name != "bn_pool_fwd":
             check(err <= 0.01 * max(scale, 1.0), f"{name} {shape}: {err} > 0.01 * {scale}")
         worst = max(worst, err)
     return worst
+
+
+EXACT = ("bn_pool_bwd", "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1",
+         "pool_route_s2")
 
 
 def main() -> int:
@@ -417,8 +484,8 @@ def main() -> int:
     from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
     from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
     from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
-                                      select_cuda)
-    from i2pnet_tpu_torch.train import create_train_state, make_train_step
+                                      pool_route_cuda, select_cuda)
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step, make_train_step_proj
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -441,31 +508,43 @@ def main() -> int:
         dict(name="bn_pool_fwd", src="bn_pool_train.cu", replaces=f"{pcc}:656"),
         dict(name="bn_pool_bwd", src="bn_pool_train.cu", replaces=f"{pcc}:801"),
     ]
-    for k in train_kernels:
+    # the pallas backend's pair, which every call without a gradient also
+    # takes (its forward)
+    pallas_kernels = [
+        dict(name="bn_pool_fwd_notap", src="bn_pool_train.cu", replaces=f"{pcc}:302"),
+        dict(name="bn_pool_bwd_recompute", src="bn_pool_train.cu", replaces=f"{pcc}:397"),
+    ]
+    for k in train_kernels + pallas_kernels:
         k.update(module=ct, fn=f"{k['name']}_cuda", plain=f"{k['name']}_plain")
+    route_kernels = [dict(name=f"pool_route_s{s}", module=pool_route_cuda, fn="pool_route_cuda",
+                          plain="pool_route_plain", src="pool_route.cu",
+                          replaces="i2pnet_tpu/nn/layers.py:165") for s in (1, 2)]
     select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
                   plain="selection_multiplicity_plain", src="select.cu",
                   replaces="i2pnet_tpu/ops/select_pallas.py:47")
-    all_kernels = eval_kernels + train_kernels + [select]
+    all_kernels = eval_kernels + train_kernels + [select] + pallas_kernels + route_kernels
     single_modules = {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda,
                       "select": select_cuda}
 
     def reset_counts():
         for mod in single_modules.values():
             mod.launches = 0
-        for key in ct.launches:
-            ct.launches[key] = 0
+        for counts in (ct.launches, pool_route_cuda.launches):
+            for key in counts:
+                counts[key] = 0
 
     def read_counts():
         counts = {name: mod.launches for name, mod in single_modules.items()}
         counts.update(ct.launches)
+        counts.update(pool_route_cuda.launches)
         return counts
 
     # --- phase 1: build the kernels, name the card
     t0 = time.perf_counter()
+    t_start = t0
     sources = sorted({k["src"][:-3] for k in all_kernels})
     _build.build_all(sources)
-    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda, select_cuda):
+    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda, select_cuda, pool_route_cuda):
         mod._lib()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} kernel libraries "
           f"(nvcc in parallel)")
@@ -671,9 +750,159 @@ def main() -> int:
                                captures["select"].calls, card))
         if "--profile" in sys.argv[1:]:
             profile_run(proj_forward, card, "proj_forward")
+
+    # --- phase 11: the proj train step on the default (idx) backend
+    del pmodel, captures, out, out2
+    prgb, plidar, praw, pk = pinputs
+    pbatch = {
+        "rgb": prgb, "lidar": plidar, "raw_xyz": praw, "intrinsic": pk,
+        "decalib_q_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(BATCH, 1),
+        "decalib_t_gt": torch.zeros(BATCH, 3, device=dev),
+    }
+
+    def proj_train_setup():
+        m = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED))
+        st = create_train_state(m, steps_per_epoch=100)
+        return m, st, make_train_step_proj(m, pcfg), torch.Generator(dev).manual_seed(SEED)
+
+    def launches_of(label, want, fn):
+        """Run fn with the counts set to 0; check and keep its launches."""
+        reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        path_launches[label] = counts
+        print(f"launches in {label}: { {k: v for k, v in counts.items() if v} }")
+        check(counts == want, f"{label} launch counts {counts}")
+        return result
+
+    ptmodel, pstate, pstep, pgen = proj_train_setup()
+    params0 = {n: p.detach().clone() for n, p in ptmodel.named_parameters()}
+    buffers0 = {n: b.clone() for n, b in ptmodel.named_buffers()}
+    pmetrics = launches_of("proj_train", PROJ_TRAIN_LAUNCHES, lambda: pstep(pstate, pbatch, pgen))
+    ploss1 = pmetrics["loss"].clone()
+    check(bool(torch.isfinite(ploss1)), f"proj first-step loss {float(ploss1)}")
+    print(f"proj first step: loss {float(ploss1):.6f}, loss_q {float(pmetrics['loss_q']):.6f}, "
+          f"loss_x {float(pmetrics['loss_x']):.6f}, sx {float(pmetrics['sx']):.6f}, "
+          f"sq {float(pmetrics['sq']):.6f}")
+    unmoved = [n for n, p in ptmodel.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not unmoved, f"proj parameters unchanged by a step: {unmoved[:5]}")
+    check(not torch.equal(ptmodel.sx.detach(), params0["sx"])
+          and not torch.equal(ptmodel.sq.detach(), params0["sq"]), "proj sx/sq unchanged")
+    # the proj family's only running statistics are the RGB encoder's
+    check(all(n.startswith("rgb_encoder.") for n in buffers0) and len(buffers0) == 30,
+          f"proj buffers {sorted(buffers0)[:4]}...")
+    unmoved = [n for n, b in ptmodel.named_buffers() if torch.equal(b, buffers0[n])]
+    check(not unmoved, f"RGB BatchNorm statistics unchanged by a proj step: {unmoved[:5]}")
+    grads1 = {n: p.grad.clone() for n, p in ptmodel.named_parameters()}
+    params1 = {n: p.detach().clone() for n, p in ptmodel.named_parameters()}
+    second = proj_train_setup()
+    ploss1b = second[2](second[1], pbatch, second[3])["loss"]
+    check(torch.equal(ploss1, ploss1b), f"a second proj run's first-step loss {float(ploss1b)} "
+                                        f"!= {float(ploss1)}")
+    # the gathered route's backward accumulates repeated window slots by
+    # indexing (ops/projection.py select_window_features), in a fixed
+    # order on the card: the repeat is held bit for bit, gradients too
+    gaps = {n: float((p.grad - grads1[n]).abs().max()) for n, p in second[0].named_parameters()}
+    worst = max(gaps, key=gaps.get)
+    print(f"a second proj run from the same seeds: first-step loss bit-identical; largest "
+          f"gradient gap {gaps[worst]:.3e} ({worst})")
+    check(gaps[worst] == 0.0, f"proj gradients differ between two runs: {gaps[worst]} at {worst}")
+    check(all(torch.equal(p.detach(), params1[n]) for n, p in second[0].named_parameters()),
+          "proj parameters differ after a repeated first step")
+    print("proj train step: loss finite; every parameter, sx, sq and RGB BatchNorm statistic "
+          "moved; a repeated first step bit-identical (loss, gradients, parameters)")
+    del second, grads1, params1
+
+    plosses = []
+
+    def proj_train_step():
+        plosses.append(pstep(pstate, pbatch, pgen)["loss"])
+
+    proj_train_step()
+    pstep_ms, spread = windows_ms(proj_train_step)
+    check(bool(torch.isfinite(torch.stack(plosses)).all()), "a proj step's loss is not finite")
+    print(f"proj train step: {pstep_ms:.3f} ms/step, {BATCH * 1000.0 / pstep_ms:.2f} pairs/s "
+          f"(B={BATCH}, median of {WINDOWS}x{ITERS}, spread {spread:.1f}%, "
+          f"{len(plosses) + 1} steps, every loss finite) on {card}")
+    if "--profile" in sys.argv[1:]:
+        profile_run(proj_train_step, card, "proj_train_step")
+
+    # --- phase 12: the pallas backend: one proj step, every call of its two
+    # kernels against the plain versions, and the first two stages' blocks
+    # under pallas and idx bit for bit
+    os.environ["I2PNET_POOL_BWD"] = "pallas"
+    captures = {k["name"]: Capture(ct, k["fn"]) for k in pallas_kernels}
+    with captures["bn_pool_fwd_notap"], captures["bn_pool_bwd_recompute"]:
+        launches_of("proj_train_pallas", PROJ_PALLAS_LAUNCHES, lambda: pstep(pstate, pbatch, pgen))
+    with torch.no_grad():
+        for k in pallas_kernels:
+            errors[k["name"]] = train_kernel_error(k["name"], getattr(ct, k["fn"]),
+                                                   getattr(ct, k["plain"]), captures[k["name"]].calls)
+            print(f"{k['name']}: {len(captures[k['name']].calls)} calls equal the plain version")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    shape = (BATCH, PROJ_H, PROJ_W)
+    for stage in ptmodel.rgb_encoder.stages[:2]:
+        blocks = [(c.weight, c.bias, b.weight, b.bias) for c, b in stage.blocks]
+        cin = stage.blocks[0][0].in_channels
+        x = torch.randn(*shape, cin, generator=gen, device=dev).to(torch.bfloat16)
+        hw = (shape[1] // 4, shape[2] // 4)
+        g = torch.randn(BATCH, *hw, stage.blocks[-1][0].out_channels, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        runs = {}
+        for bwd in ("pallas", "idx"):
+            os.environ["I2PNET_POOL_BWD"] = bwd
+            leaves = [[t.detach().clone().requires_grad_() for t in blk] for blk in blocks]
+            # the first stage's 3 input channels take no dx (the image needs none)
+            xg = x.clone().requires_grad_(cin % 8 == 0)
+            out_s, _ = ct.fused_stage_train(xg, leaves, stage.strides)
+            out_s.backward(g)
+            runs[bwd] = [out_s, xg.grad] + [t.grad for blk in leaves for t in blk]
+        check(all((a is None and b is None) or torch.equal(a, b)
+                  for a, b in zip(runs["pallas"], runs["idx"])),
+              f"fused_stage_train at {tuple(x.shape)}: pallas and idx differ")
+        print(f"fused_stage_train at {tuple(x.shape)}: out, "
+              f"{'dx, ' if cin % 8 == 0 else ''}dw, db, dgamma, dbeta bit-identical under pallas "
+              f"and idx")
+        shape = (BATCH, *hw)
+    del os.environ["I2PNET_POOL_BWD"]
+
+    # --- phase 13: a train-mode proj forward that takes no gradient
+    with torch.no_grad():
+        out = launches_of("proj_train_nograd", PROJ_NOGRAD_LAUNCHES,
+                          lambda: ptmodel(prgb, plidar, praw, pk, generator=pgen))
+    check(bool(torch.isfinite(out["out3"]).all()), "no-grad train-mode proj forward: out3")
+    print("a train-mode proj forward without gradient: the no-tap forward in every block")
+
+    # --- phase 14: the native chain (I2PNET_FUSED_TRAIN=0) with the routed
+    # pool backward (I2PNET_POOL_PALLAS=1)
+    os.environ.update(I2PNET_FUSED_TRAIN="0", I2PNET_POOL_PALLAS="1")
+    route_capture = Capture(pool_route_cuda, "pool_route_cuda")
+    with route_capture:
+        m = launches_of("proj_train_native_routed", PROJ_ROUTED_LAUNCHES,
+                        lambda: pstep(pstate, pbatch, pgen))
+    check(bool(torch.isfinite(m["loss"])), f"native-chain proj loss {float(m['loss'])}")
+    for key in ("I2PNET_FUSED_TRAIN", "I2PNET_POOL_PALLAS"):
+        del os.environ[key]
+    route_calls = {k["name"]: [c for c in route_capture.calls if c[0][2] == int(k["name"][-1])]
+                   for k in route_kernels}
+    with torch.no_grad():
+        for k in route_kernels:
+            errors[k["name"]] = train_kernel_error(k["name"], pool_route_cuda.pool_route_cuda,
+                                                   pool_route_cuda.pool_route_plain,
+                                                   route_calls[k["name"]])
+            print(f"{k['name']}: {len(route_calls[k['name']])} calls equal the plain version")
+        for k in pallas_kernels:
+            rows.append(kernel_row(k, path_launches["proj_train_pallas"][k["name"]],
+                                   errors[k["name"]], captures[k["name"]].calls, card))
+        for k in route_kernels:
+            rows.append(kernel_row(k, path_launches["proj_train_native_routed"][k["name"]],
+                                   errors[k["name"]], route_calls[k["name"]], card))
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}
     print(json.dumps({"kernels": rows}))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s, the build "
+          f"included")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

@@ -1,5 +1,7 @@
 // The train-mode RGB-encoder block's BN epilogue and pool: kernel (c), its
-// forward with the winning taps, and kernel (d), its backward.
+// forward with the winning taps, and kernel (d), its backward; kernel (e),
+// the forward without taps, and kernel (f), the backward that recomputes
+// the taps.
 //
 // Replaces the TPU kernels of i2pnet_tpu/ops/conv_pallas_train.py:
 //   (c) _bn_pool_fwd_idx_kernel (:656, launched by _bn_pool_fwd_idx_p :775):
@@ -11,6 +13,15 @@
 //       dz[pixel] = the sum, in tap order k = 0..8, of the pooled cotangents
 //       g whose saved tap is this pixel, times the LeakyReLU slope (1 where
 //       z >= 0, else 0.1).
+//   (e) _bn_pool_kernel (:302, launched by _bn_pool_fwd_p :375): (c) without
+//       the taps, the forward of the pallas/native/sas backends and of every
+//       call that needs no gradient. One template of (c)'s kernel.
+//   (f) _bn_pool_bwd_kernel (:397, launched by _bn_pool_bwd_p :588): (d)'s dz
+//       from y, sc, sh and g alone. A block stages a = bf16(LeakyReLU(y * sc
+//       + sh)) for an 8x8 tile of input pixels with a 2-pixel halo in shared
+//       memory, finds the first-max tap of every pooled cell that covers the
+//       tile (the same strict-> scan as (c)), then each pixel gathers its
+//       <= 9 cells as (d) does. dz equals (d)'s bit for bit.
 // The TPU's lane rolls, row pairing and even-w selection matmuls are not
 // carried over.
 //
@@ -20,7 +31,10 @@
 // neighbouring threads take neighbouring channel groups and pixels. The
 // overlapping windows' re-reads hit the caches. (d) gathers, for each input
 // pixel, the <= 9 (stride 1) or <= 4 (stride 2) pooled cells that cover it,
-// so it needs no atomics and sums in a fixed order.
+// so it needs no atomics and sums in a fixed order. (f) reads y once per
+// tile with its halo (12x12 staged for 8x8 pixels) and recomputes each
+// cell's 9-tap scan from shared memory: about 9 compares per pooled cell
+// and channel, still below the bytes.
 //
 // The affine is spelled with __fmul_rn / __fadd_rn: nvcc would contract it
 // into an FMA, and the plain PyTorch version rounds twice. Out and taps are
@@ -47,6 +61,8 @@ __device__ __forceinline__ float affine(float y, float s, float o) {
   return __fadd_rn(__fmul_rn(y, s), o);
 }
 
+// kTaps: (c), which also writes the winning taps; else (e)
+template <bool kTaps>
 __global__ void bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y,
                                    const float* __restrict__ sc, const float* __restrict__ sh,
                                    __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ taps,
@@ -92,7 +108,7 @@ __global__ void bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y,
     for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(best[j]);
     const size_t at = ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + c;
     *reinterpret_cast<uint4*>(out + at) = *reinterpret_cast<const uint4*>(o);
-    *reinterpret_cast<uint2*>(taps + at) = *reinterpret_cast<const uint2*>(tap);
+    if constexpr (kTaps) *reinterpret_cast<uint2*>(taps + at) = *reinterpret_cast<const uint2*>(tap);
   }
 }
 
@@ -144,6 +160,121 @@ __global__ void bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y,
   }
 }
 
+// (f): one block per 8x8 tile of input pixels, one batch row and up to
+// kGroups 8-channel groups; a thread per (pixel, group).
+constexpr int kTile = 8;
+constexpr int kHalo = kTile + 4;   // rows (and columns) of staged a
+constexpr int kCells = kTile + 2;  // pooled cells a side that cover a tile
+constexpr int kGroups = 4;
+
+__global__ void bn_pool_bwd_recompute_kernel(const __nv_bfloat16* __restrict__ y,
+                                             const float* __restrict__ sc,
+                                             const float* __restrict__ sh,
+                                             const __nv_bfloat16* __restrict__ g,
+                                             float* __restrict__ dz, Shape s, int groups) {
+  __shared__ float sa[kHalo * kHalo * kGroups * 8];                // 18,432 bytes
+  __shared__ __align__(8) uint8_t st[kCells * kCells * kGroups * 8];  // 3,200 bytes
+  const int C8 = s.C / 8;
+  const int w0 = blockIdx.x * kTile, h0 = blockIdx.y * kTile;
+  const int chunks = (C8 + groups - 1) / groups;
+  const int b = blockIdx.z / chunks, g0 = (blockIdx.z % chunks) * groups;
+
+  // 1. a on rows [h0-2, h0+kTile+2) x columns [w0-2, w0+kTile+2); -inf off
+  //    the image, so the pad never wins
+  for (int i = threadIdx.x; i < kHalo * kHalo * groups; i += blockDim.x) {
+    const int gi = i % groups, p = i / groups;
+    const int h = h0 - 2 + p / kHalo, w = w0 - 2 + p % kHalo;
+    float* dst = sa + i * 8;
+    if (g0 + gi < C8 && h >= 0 && h < s.H && w >= 0 && w < s.W) {
+      const int c = (g0 + gi) * 8;
+      float scv[8], shv[8];
+      load_affine(sc, sh, c, scv, shv);
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(y + ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c);
+      const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float z = affine(__bfloat162float(yv[j]), scv[j], shv[j]);
+        dst[j] = bf16_round(z >= 0.f ? z : __fmul_rn(z, 0.1f));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[j] = -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // 2. the first-max tap of every pooled cell (oh, ow) with oh*s in
+  //    [h0-1, h0+kTile] and ow*s in [w0-1, w0+kTile]: the cells that cover a
+  //    pixel of the tile; their windows lie inside the staged rows
+  const int oh_lo = max(0, (h0 - 1 + s.stride - 1) / s.stride);
+  const int ow_lo = max(0, (w0 - 1 + s.stride - 1) / s.stride);
+  const int nch = min(s.Ho - 1, (h0 + kTile) / s.stride) - oh_lo + 1;
+  const int ncw = min(s.Wo - 1, (w0 + kTile) / s.stride) - ow_lo + 1;
+  for (int i = threadIdx.x; i < nch * ncw * groups; i += blockDim.x) {
+    const int gi = i % groups, cell = i / groups;
+    const int r0 = (oh_lo + cell / ncw) * s.stride - h0 + 1;  // the window's first staged row
+    const int c0 = (ow_lo + cell % ncw) * s.stride - w0 + 1;
+    float best[8];
+    __align__(8) uint8_t tap[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      best[j] = -INFINITY;
+      tap[j] = 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float* src = sa + (((r0 + k / 3) * kHalo + c0 + k % 3) * groups + gi) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (src[j] > best[j]) {
+          best[j] = src[j];
+          tap[j] = static_cast<uint8_t>(k);
+        }
+      }
+    }
+    *reinterpret_cast<uint2*>(st + i * 8) = *reinterpret_cast<const uint2*>(tap);
+  }
+  __syncthreads();
+
+  // 3. each pixel sums the cotangents of the cells whose tap it is, in tap
+  //    order, times the LeakyReLU slope: (d) with the recomputed taps
+  const int gi = threadIdx.x % groups, p = threadIdx.x / groups;
+  const int h = h0 + p / kTile, w = w0 + p % kTile;
+  if (g0 + gi >= C8 || h >= s.H || w >= s.W) return;
+  const int c = (g0 + gi) * 8;
+  float acc[8] = {};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int hn = h + 1 - k / 3, wn = w + 1 - k % 3;
+    if (hn < 0 || wn < 0 || hn % s.stride || wn % s.stride) continue;
+    const int oh = hn / s.stride, ow = wn / s.stride;
+    if (oh >= s.Ho || ow >= s.Wo) continue;
+    const uint2 tv = *reinterpret_cast<const uint2*>(
+        st + (((oh - oh_lo) * ncw + ow - ow_lo) * groups + gi) * 8);
+    const uint4 gv =
+        *reinterpret_cast<const uint4*>(g + ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + c);
+    const uint8_t* tp = reinterpret_cast<const uint8_t*>(&tv);
+    const __nv_bfloat16* gp = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (tp[j] == k) acc[j] += __bfloat162float(gp[j]);
+  }
+  float scv[8], shv[8];
+  load_affine(sc, sh, c, scv, shv);
+  const size_t at = ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c;
+  const uint4 raw = *reinterpret_cast<const uint4*>(y + at);
+  const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  __align__(16) float o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    o[j] = affine(__bfloat162float(yv[j]), scv[j], shv[j]) >= 0.f ? acc[j]
+                                                                   : __fmul_rn(acc[j], 0.1f);
+  float4* dst = reinterpret_cast<float4*>(dz + at);
+  dst[0] = *reinterpret_cast<const float4*>(o);
+  dst[1] = *reinterpret_cast<const float4*>(o + 4);
+}
+
 // enough blocks of 256 threads to fill the card a few times over; the
 // kernels stride over the rest
 inline int grid_for(long long items) {
@@ -164,11 +295,23 @@ extern "C" int bn_pool_fwd_launch(const void* y, const void* sc, const void* sh,
                                   void* stream) {
   const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
   if (!valid(s)) return cudaErrorInvalidValue;
-  bn_pool_fwd_kernel<<<grid_for(static_cast<long long>(B) * s.Ho * s.Wo * (C / 8)), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  bn_pool_fwd_kernel<true><<<grid_for(static_cast<long long>(B) * s.Ho * s.Wo * (C / 8)), 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
       static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out),
       static_cast<uint8_t*>(taps), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (e): out alone, as bn_pool_fwd_launch's out.
+extern "C" int bn_pool_fwd_notap_launch(const void* y, const void* sc, const void* sh, void* out,
+                                        int B, int H, int W, int C, int stride, void* stream) {
+  const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
+  if (!valid(s)) return cudaErrorInvalidValue;
+  bn_pool_fwd_kernel<false><<<grid_for(static_cast<long long>(B) * s.Ho * s.Wo * (C / 8)), 256,
+                              0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
+      static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out), nullptr, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -183,5 +326,24 @@ extern "C" int bn_pool_bwd_launch(const void* y, const void* sc, const void* sh,
       static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
       static_cast<const float*>(sh), static_cast<const uint8_t*>(taps),
       static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dz), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (f): dz (B,H,W,C) f32 from y, sc, sh and g (B,Ho,Wo,C) bf16, as
+// bn_pool_bwd_launch with the taps (c) would save.
+extern "C" int bn_pool_bwd_recompute_launch(const void* y, const void* sc, const void* sh,
+                                            const void* g, void* dz, int B, int H, int W, int C,
+                                            int stride, void* stream) {
+  const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
+  if (!valid(s)) return cudaErrorInvalidValue;
+  const int C8 = C / 8, groups = C8 < kGroups ? C8 : kGroups;
+  const long long z = static_cast<long long>(B) * ((C8 + groups - 1) / groups);
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, static_cast<unsigned>(z));
+  bn_pool_bwd_recompute_kernel<<<grid, kTile * kTile * groups, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
+      static_cast<const float*>(sh), static_cast<const __nv_bfloat16*>(g),
+      static_cast<float*>(dz), s, groups);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,11 @@ At eval every LiDAR level runs the dense route, its multiplicities from the
 selection kernel on the card (``ops/select_cuda.py``); in bf16 the RGB
 encoder runs the fused eval block kernel (``ops/conv_cuda.py``). The
 forward makes no host-device synchronisation, so it can be captured as a
-CUDA graph.
+CUDA graph. In training (``train/step.py`` ``make_train_step_proj``) the
+levels take the gathered route, the heads draw their dropout from the
+caller's generator, and in bf16 the RGB encoder runs the train kernels
+(``ops/conv_train_cuda.py``), or the native chain under
+``I2PNET_FUSED_TRAIN=0``, moving its running statistics by flax's rule.
 """
 
 from __future__ import annotations

@@ -13,13 +13,14 @@ running statistics, in training with the batch's (see ``BatchNorm``).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, pool_route_cuda
 
 # flax momentum 0.9 (running = 0.9 * running + 0.1 * batch), eps 1e-5
 BN_MOMENTUM = 0.9
@@ -180,10 +181,83 @@ class PointwiseMLP(nn.Module):
         return x
 
 
-def max_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """3x3 max-pool, stride s, pad 1 (padding never wins) on NHWC."""
+def _pool3_fwd(x: torch.Tensor, stride: int) -> torch.Tensor:
     y = F.max_pool2d(x.float().permute(0, 3, 1, 2), 3, stride, 1)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class _Pool3(torch.autograd.Function):
+    """The pool, with one of JAX's custom backwards ``bwd(x, y, ct,
+    stride)``: the routed one (``_pool3_custom``) or the all-ties one
+    (``_pool3_allties``)."""
+
+    @staticmethod
+    def forward(ctx, x, stride, bwd):
+        y = _pool3_fwd(x, stride)
+        ctx.save_for_backward(x, y)
+        ctx.stride, ctx.bwd = stride, bwd
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, y = ctx.saved_tensors
+        return ctx.bwd(x, y, ct.to(y.dtype).contiguous(), ctx.stride), None, None
+
+
+def _pool3_route_bwd(x, y, ct, s):
+    """Each cell's first-max tap (``pool3_argtap``), then the route kernel
+    (``ops/pool_route_cuda.py``)."""
+    return pool_route_cuda.pool_route(pool_route_cuda.pool3_argtap(x, y, s), ct, s)
+
+
+def _pool3_allties_bwd(x, y, ct, s):
+    """JAX's ``_pool3_allties_bwd``: every window entry equal to the pooled
+    value takes the window's cotangent, summed over the covering windows in
+    JAX's order, in ct's dtype."""
+    if s == 1:
+        H, W = x.shape[1:3]
+        yp = F.pad(y, (0, 0, 1, 1, 1, 1), value=float("-inf"))
+        cp = F.pad(ct, (0, 0, 1, 1, 1, 1))
+        dx = None
+        for oh in range(3):
+            for ow in range(3):
+                window = (slice(None), slice(oh, oh + H), slice(ow, ow + W))
+                contrib = torch.where(x == yp[window], cp[window], 0)
+                dx = contrib if dx is None else dx + contrib
+        return dx
+    B, Ho, Wo, C = y.shape
+    yp = F.pad(y, (0, 0, 0, 1, 0, 1), value=float("-inf"))
+    cp = F.pad(ct, (0, 0, 0, 1, 0, 1))
+    planes = torch.empty(2, 2, B, Ho, Wo, C, dtype=ct.dtype, device=ct.device)
+    for ph in (0, 1):
+        for pw in (0, 1):
+            xp = x[:, ph::2, pw::2]
+            acc = None
+            for a in range(ph + 1):  # input row 2m+ph: windows m (and m+1 if odd)
+                for b in range(pw + 1):
+                    window = (slice(None), slice(a, a + Ho), slice(b, b + Wo))
+                    contrib = torch.where(xp == yp[window], cp[window], 0)
+                    acc = contrib if acc is None else acc + contrib
+            planes[ph, pw] = acc
+    return planes.permute(2, 3, 0, 4, 1, 5).reshape(B, 2 * Ho, 2 * Wo, C)
+
+
+def max_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """3x3 max-pool, stride s, pad 1 (padding never wins) on NHWC.
+
+    The backward follows JAX's ``max_pool_3x3`` switches, read at call
+    time, where stride is 1 or 2 and divides H and W: ``I2PNET_POOL_ALLTIES=1``
+    takes the all-ties backward (plain PyTorch), else ``I2PNET_POOL_PALLAS=1``
+    the routed one (the route kernel; the name is the JAX package's). Every
+    other call is ``F.max_pool2d``'s, which, like the routed one and XLA's
+    select-and-scatter, sends a tie's cotangent to the first max."""
+    H, W = x.shape[1:3]
+    clean = stride in (1, 2) and H % stride == 0 and W % stride == 0
+    if clean and os.environ.get("I2PNET_POOL_ALLTIES") == "1":
+        return _Pool3.apply(x, stride, _pool3_allties_bwd)
+    if clean and os.environ.get("I2PNET_POOL_PALLAS") == "1":
+        return _Pool3.apply(x, stride, _pool3_route_bwd)
+    return _pool3_fwd(x, stride)
 
 
 class RGBEncoderStage(nn.Module):
@@ -193,15 +267,17 @@ class RGBEncoderStage(nn.Module):
     In bf16 the blocks take the fused kernels, as the JAX package routes
     them to its Pallas kernels: at eval one kernel per block
     (``ops/conv_cuda.py``, bias and BN folded into an f32 scale/shift); in
-    training the four train kernels (``ops/conv_train_cuda.py``: conv, batch
+    training the train kernels (``ops/conv_train_cuda.py``: conv, batch
     statistics, scale/shift + LeakyReLU + pool, and their gradients), with
     the running statistics moved by flax's momentum rule. The JAX package
     takes its train kernels only where its TPU layout rules hold
     (``stage_supported_train``); the port has none and takes them at every
     shape, so where JAX would run its native ops the two differ only in
-    rounding points. Otherwise (f32) the native chain runs: conv, BN with
-    batch or running statistics, LeakyReLU, pool; with ``bn_compute_dtype``
-    the BN result is in the compute dtype.
+    rounding points. ``I2PNET_FUSED_TRAIN=0`` (read at call time, as JAX
+    reads it) takes the native chain in bf16 training too. The native chain
+    (f32 always): conv, BN with batch or running statistics, LeakyReLU,
+    ``max_pool_3x3``; with ``bn_compute_dtype`` the BN result is in the
+    compute dtype.
     """
 
     def __init__(self, cin: int, channels: Sequence[int], strides: Sequence[int],
@@ -220,7 +296,10 @@ class RGBEncoderStage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.bfloat16:
-            return self._fused_train(x) if self.training else self._fused_eval(x)
+            if not self.training:
+                return self._fused_eval(x)
+            if os.environ.get("I2PNET_FUSED_TRAIN") != "0":
+                return self._fused_train(x)
         bn_dt = self.dtype if self.bn_compute_dtype else None
         for (conv, bn), s in zip(self.blocks, self.strides):
             dt = self.dtype or torch.promote_types(x.dtype, conv.weight.dtype)

@@ -1,7 +1,7 @@
-"""The train-mode RGB-encoder blocks, differentiable: four CUDA kernels
+"""The train-mode RGB-encoder blocks, differentiable: six CUDA kernels
 (``csrc/conv_train.cu``, ``csrc/bn_pool_train.cu``) and their plain PyTorch
-versions. Port of ``i2pnet_tpu/ops/conv_pallas_train.py`` on its default
-(``idx``) backward.
+versions. Port of ``i2pnet_tpu/ops/conv_pallas_train.py`` with each of its
+four pool backwards.
 
 The kernels, each replacing one TPU kernel of that module:
 
@@ -16,9 +16,22 @@ The kernels, each replacing one TPU kernel of that module:
       order) as uint8;
   (d) ``bn_pool_bwd_cuda`` (``_bn_pool_bwd_idx_kernel`` :801): the pooled
       cotangent routed to the saved taps, summed in tap order, times the
-      LeakyReLU slope, as f32 dz.
+      LeakyReLU slope, as f32 dz;
+  (e) ``bn_pool_fwd_notap_cuda`` (``_bn_pool_kernel`` :302): (c) without the
+      taps;
+  (f) ``bn_pool_bwd_recompute_cuda`` (``_bn_pool_bwd_kernel`` :397): (d)'s
+      dz from y, sc, sh and g alone, the taps recomputed.
 
-All four are bound by bytes on the H100 (see the source notes). Layouts
+``bn_pool`` picks the backward as JAX's ``bn_pool`` does, from
+``I2PNET_POOL_BWD`` (read at call time): ``idx`` (the default) runs (c) and
+(d); ``native`` and ``sas`` run (e), then autograd of a plain formulation
+(the merged max tree, whose ``torch.maximum`` halves the cotangent of a
+tie as ``jnp.maximum`` does; ``F.max_pool2d``, first max); any other value
+(``pallas``, the JAX package's name for it) runs (e) and (f). A call that
+needs no gradient runs (e) alone on every backend, as the primal of JAX's
+custom VJP.
+
+All six are bound by bytes on the H100 (see the source notes). Layouts
 are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
 weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
 ``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts
@@ -37,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +59,8 @@ from i2pnet_tpu_torch.ops import _build
 
 # kernel launches since the last reset (read by chip_smoke.py); conv_dw
 # counts one per call, which is two CUDA launches (tiles, then their sum)
-launches = dict.fromkeys(("conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd"), 0)
+launches = dict.fromkeys(("conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd",
+                          "bn_pool_fwd_notap", "bn_pool_bwd_recompute"), 0)
 
 _BF = torch.bfloat16
 # (b)'s split: about this many blocks per call, each summing a fixed run of
@@ -133,6 +148,19 @@ def bn_pool_bwd_plain(y, sc, sh, taps, g, stride: int):
     return acc[:, 1:H + 1, 1:W + 1] * torch.where(z >= 0, 1.0, 0.1)
 
 
+def bn_pool_fwd_notap_plain(y, sc, sh, stride: int):
+    """(B,Ho,Wo,C) bf16: ``bn_pool_fwd_plain``'s out, no taps."""
+    z = _affine(y, sc, sh)
+    a = torch.where(z >= 0, z, 0.1 * z).to(_BF).float()
+    return functools.reduce(torch.maximum, _pool_taps(a, stride)).to(_BF)
+
+
+def bn_pool_bwd_recompute_plain(y, sc, sh, g, stride: int):
+    """dz (B,H,W,C) f32 as ``bn_pool_bwd_plain`` with the taps that
+    ``bn_pool_fwd_plain`` finds."""
+    return bn_pool_bwd_plain(y, sc, sh, bn_pool_fwd_plain(y, sc, sh, stride)[1], g, stride)
+
+
 # ---- the CUDA kernels --------------------------------------------------------
 
 @functools.cache
@@ -154,6 +182,10 @@ def _pool_lib() -> ctypes.CDLL:
     lib.bn_pool_fwd_launch.restype = i
     lib.bn_pool_bwd_launch.argtypes = [v, v, v, v, v, v, i, i, i, i, i, v]
     lib.bn_pool_bwd_launch.restype = i
+    lib.bn_pool_fwd_notap_launch.argtypes = [v, v, v, v, i, i, i, i, i, v]
+    lib.bn_pool_fwd_notap_launch.restype = i
+    lib.bn_pool_bwd_recompute_launch.argtypes = [v, v, v, v, v, i, i, i, i, i, v]
+    lib.bn_pool_bwd_recompute_launch.restype = i
     return lib
 
 
@@ -267,6 +299,33 @@ def bn_pool_bwd_cuda(y, sc, sh, taps, g, stride: int):
     return dz
 
 
+def bn_pool_fwd_notap_cuda(y, sc, sh, stride: int):
+    """Kernel (e); operands as ``bn_pool_fwd_notap_plain``, C % 8 == 0."""
+    B, H, W, C, Ho, Wo = _pool_shape(y, sc, sh, stride, "bn_pool_fwd_notap")
+    out = torch.empty(B, Ho, Wo, C, dtype=_BF, device=y.device)
+    lib = _pool_lib()
+    code = lib.bn_pool_fwd_notap_launch(
+        _build.ptr(y), _build.ptr(sc), _build.ptr(sh), _build.ptr(out),
+        B, H, W, C, stride, _build.stream_of(y))
+    _build.check(lib, code, "bn_pool_fwd_notap_launch")
+    launches["bn_pool_fwd_notap"] += 1
+    return out
+
+
+def bn_pool_bwd_recompute_cuda(y, sc, sh, g, stride: int):
+    """Kernel (f); operands as ``bn_pool_bwd_recompute_plain``."""
+    B, H, W, C, Ho, Wo = _pool_shape(y, sc, sh, stride, "bn_pool_bwd_recompute")
+    _require(g, _BF, (B, Ho, Wo, C), "bn_pool_bwd_recompute g")
+    dz = torch.empty(B, H, W, C, dtype=torch.float32, device=y.device)
+    lib = _pool_lib()
+    code = lib.bn_pool_bwd_recompute_launch(
+        _build.ptr(y), _build.ptr(sc), _build.ptr(sh), _build.ptr(g), _build.ptr(dz),
+        B, H, W, C, stride, _build.stream_of(y))
+    _build.check(lib, code, "bn_pool_bwd_recompute_launch")
+    launches["bn_pool_bwd_recompute"] += 1
+    return dz
+
+
 # ---- dispatch: the kernel for CUDA tensors, the plain version for CPU ones ---
 
 def conv_fwd(x, w, bias):
@@ -289,6 +348,18 @@ def bn_pool_bwd(y, sc, sh, taps, g, stride: int):
     if y.is_cuda:
         return bn_pool_bwd_cuda(y, sc, sh, taps, g, stride)
     return bn_pool_bwd_plain(y, sc, sh, taps, g, stride)
+
+
+def bn_pool_fwd_notap(y, sc, sh, stride: int):
+    if y.is_cuda:
+        return bn_pool_fwd_notap_cuda(y, sc, sh, stride)
+    return bn_pool_fwd_notap_plain(y, sc, sh, stride)
+
+
+def bn_pool_bwd_recompute(y, sc, sh, g, stride: int):
+    if y.is_cuda:
+        return bn_pool_bwd_recompute_cuda(y, sc, sh, g, stride)
+    return bn_pool_bwd_recompute_plain(y, sc, sh, g, stride)
 
 
 # ---- autograd ----------------------------------------------------------------
@@ -317,6 +388,11 @@ class _ConvTrain(torch.autograd.Function):
         return dx, dw, db
 
 
+def _bn_pool_grads(dz, y, sc):
+    """(dy bf16, dsc, dsh) from dz, as conv_pallas_train.py:1003-1006."""
+    return (dz * sc).to(_BF), (dz * y.float()).sum((0, 1, 2)), dz.sum((0, 1, 2))
+
+
 class _BnPool(torch.autograd.Function):
     """(y bf16, sc f32, sh f32) -> pooled bf16, as ``_make_bn_pool``'s idx
     pair (conv_pallas_train.py:1053-1076)."""
@@ -332,10 +408,65 @@ class _BnPool(torch.autograd.Function):
     def backward(ctx, g):
         y, sc, sh, taps = ctx.saved_tensors
         dz = bn_pool_bwd(y, sc, sh, taps, g.to(_BF).contiguous(), ctx.stride)
-        dy = (dz * sc).to(_BF)
-        dsc = (dz * y.float()).sum((0, 1, 2))
-        dsh = dz.sum((0, 1, 2))
-        return dy, dsc, dsh, None
+        return *_bn_pool_grads(dz, y, sc), None
+
+
+def _leaky_st(y, sc, sh):
+    """LeakyReLU(y * sc + sh) in f32 with the bf16 rounding straight
+    through: bf16 values forward, the cotangent stays f32 (JAX's native and
+    sas formulations)."""
+    z = y.float() * sc + sh
+    a = torch.where(z >= 0, z, 0.1 * z)
+    return a + (a.to(_BF).float() - a).detach()
+
+
+def _bn_pool_native_merged(y, sc, sh, stride):
+    """JAX's ``_bn_pool_native_merged`` (conv_pallas_train.py:614-653) on
+    NHWC: the pool as a max tree over column then row shifts (pad -inf,
+    which no finite activation equals), then subsampled."""
+    a = _leaky_st(y, sc, sh)
+    wl = F.pad(a[:, :, :-1], (0, 0, 1, 0), value=float("-inf"))
+    wr = F.pad(a[:, :, 1:], (0, 0, 0, 1), value=float("-inf"))
+    wmax = torch.maximum(a, torch.maximum(wl, wr))
+    up = F.pad(wmax[:, :-1], (0, 0, 0, 0, 1, 0), value=float("-inf"))
+    dn = F.pad(wmax[:, 1:], (0, 0, 0, 0, 0, 1), value=float("-inf"))
+    rmax = torch.maximum(wmax, torch.maximum(up, dn))
+    return rmax[:, ::stride, ::stride].to(_BF)
+
+
+def _bn_pool_sas(y, sc, sh, stride):
+    """JAX's unmerged ``reduce_window`` formulation (:1035-1047), whose
+    gradient goes to the first max (``F.max_pool2d``'s backward)."""
+    a = _leaky_st(y, sc, sh).permute(0, 3, 1, 2)
+    return F.max_pool2d(a, 3, stride, 1).permute(0, 2, 3, 1).to(_BF)
+
+
+class _BnPoolRecompute(torch.autograd.Function):
+    """(y, sc, sh) -> pooled bf16 with kernel (e) forward, saving no taps;
+    the backward is (f) (JAX's pallas backend, :996-1007) or, given
+    ``formulation``, autograd of that plain formulation (native, sas)."""
+
+    @staticmethod
+    def forward(ctx, y, sc, sh, stride, formulation):
+        ctx.save_for_backward(y, sc, sh)
+        ctx.stride, ctx.formulation = stride, formulation
+        return bn_pool_fwd_notap(y, sc, sh, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sc, sh = ctx.saved_tensors
+        g = g.to(_BF).contiguous()
+        if ctx.formulation is None:
+            dz = bn_pool_bwd_recompute(y, sc, sh, g, ctx.stride)
+            return *_bn_pool_grads(dz, y, sc), None, None
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (y, sc, sh)]
+            out = ctx.formulation(*leaves, ctx.stride)
+            dy, dsc, dsh = torch.autograd.grad(out, leaves, g)
+        return dy, dsc, dsh, None, None
+
+
+_FORMULATIONS = {"native": _bn_pool_native_merged, "sas": _bn_pool_sas}
 
 
 def conv_train(x, w, b):
@@ -346,8 +477,16 @@ def conv_train(x, w, b):
 
 def bn_pool(y, sc, sh, stride: int):
     """Differentiable scale/shift -> LeakyReLU(0.1) -> bf16 -> 3x3 max-pool
-    (stride s, pad 1): y (B,H,W,C) bf16, sc/sh (C,) f32 -> (B,Ho,Wo,C) bf16."""
-    return _BnPool.apply(y.contiguous(), sc.float().contiguous(), sh.float().contiguous(), stride)
+    (stride s, pad 1): y (B,H,W,C) bf16, sc/sh (C,) f32 -> (B,Ho,Wo,C) bf16.
+    The backward follows ``I2PNET_POOL_BWD`` (module docstring); without a
+    gradient to take, kernel (e) alone."""
+    y, sc, sh = y.contiguous(), sc.float().contiguous(), sh.float().contiguous()
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (y, sc, sh))):
+        return bn_pool_fwd_notap(y, sc, sh, stride)
+    bwd = os.environ.get("I2PNET_POOL_BWD", "idx")
+    if bwd == "idx":
+        return _BnPool.apply(y, sc, sh, stride)
+    return _BnPoolRecompute.apply(y, sc, sh, stride, _FORMULATIONS.get(bwd))
 
 
 def fused_stage_train(x, blocks, strides, eps: float = 1e-5):

@@ -1,4 +1,4 @@
-"""The free-point train step of the port (port of ``i2pnet_tpu/train``)."""
+"""The train steps of the port, both families (port of ``i2pnet_tpu/train``)."""
 
 from i2pnet_tpu_torch.train.state import (
     TrainState,
@@ -6,7 +6,7 @@ from i2pnet_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
 )
-from i2pnet_tpu_torch.train.step import make_train_step
+from i2pnet_tpu_torch.train.step import make_train_step, make_train_step_proj
 
 __all__ = [
     "TrainState",
@@ -14,4 +14,5 @@ __all__ = [
     "create_train_state",
     "make_optimizer",
     "make_train_step",
+    "make_train_step_proj",
 ]

@@ -1,4 +1,4 @@
-"""The free-point train step (port of ``i2pnet_tpu/train/step.py``).
+"""The train steps of both families (port of ``i2pnet_tpu/train/step.py``).
 
 One step is forward in train mode (batch-statistics BatchNorm, which moves
 the running statistics, and head dropout), the loss, backward, optional
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from i2pnet_tpu_torch.config import I2PNetConfig
+from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
 from i2pnet_tpu_torch.losses import projection_mask_loss, registration_loss
 from i2pnet_tpu_torch.train.state import TrainState, clip_by_global_norm_
 
@@ -73,18 +73,26 @@ def _free_point_loss_fn(model, cfg: I2PNetConfig, img_size=None, train_target: s
     return loss_fn
 
 
-def make_train_step(model, cfg: I2PNetConfig, img_size: Optional[Tuple[int, int]] = None,
-                    train_target: str = "all"):
-    """Returns ``train_step(state, batch, generator=None) -> metrics``.
+def _proj_loss_fn(model, cfg: I2PNetProjConfig):
+    """loss(batch, generator) -> (loss, metrics), as ``_proj_loss_fn`` of the
+    JAX package: the registration loss alone (the projection family has no
+    mask or delay branch); the batch also carries raw_xyz."""
 
-    batch: dict of tensors on the model's device: rgb (B,H,W,3), lidar
-    (B,N,3), intrinsic (B,3,3), decalib_q_gt (B,4), decalib_t_gt (B,3);
-    optional lidar_feats and raw_xyz (B,N,3). generator: a
-    ``torch.Generator`` on that device for the dropout. ``state`` is a
-    ``TrainState`` over ``model``; the step updates it in place.
-    """
-    loss_fn = _free_point_loss_fn(model, cfg, img_size, train_target)
+    def loss_fn(batch, generator):
+        out = model(batch["rgb"], batch["lidar"], batch["raw_xyz"], batch["intrinsic"],
+                    lidar_feature=batch.get("lidar_feats"), generator=generator)
+        loss, loss_q, loss_x = registration_loss(
+            out["out3"], out["out4"], batch["decalib_q_gt"], batch["decalib_t_gt"],
+            out["sx"], out["sq"], l1_trans=cfg.l1_trans_loss,
+        )
+        metrics = {"loss": loss, "loss_q": loss_q, "loss_x": loss_x,
+                   "sx": out["sx"].reshape(()), "sq": out["sq"].reshape(())}
+        return loss, {k: v.detach() for k, v in metrics.items()}
 
+    return loss_fn
+
+
+def _make_step(model, loss_fn):
     def train_step(state: TrainState, batch: dict, generator=None) -> dict:
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -98,3 +106,22 @@ def make_train_step(model, cfg: I2PNetConfig, img_size: Optional[Tuple[int, int]
         return metrics
 
     return train_step
+
+
+def make_train_step(model, cfg: I2PNetConfig, img_size: Optional[Tuple[int, int]] = None,
+                    train_target: str = "all"):
+    """Returns ``train_step(state, batch, generator=None) -> metrics``.
+
+    batch: dict of tensors on the model's device: rgb (B,H,W,3), lidar
+    (B,N,3), intrinsic (B,3,3), decalib_q_gt (B,4), decalib_t_gt (B,3);
+    optional lidar_feats and raw_xyz (B,N,3). generator: a
+    ``torch.Generator`` on that device for the dropout. ``state`` is a
+    ``TrainState`` over ``model``; the step updates it in place.
+    """
+    return _make_step(model, _free_point_loss_fn(model, cfg, img_size, train_target))
+
+
+def make_train_step_proj(model, cfg: I2PNetProjConfig):
+    """``make_train_step`` for ``I2PNetProj``: the batch also carries raw_xyz
+    (B,N,3), the raw cloud that sets the range image."""
+    return _make_step(model, _proj_loss_fn(model, cfg))

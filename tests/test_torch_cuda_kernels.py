@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, cv_cuda, fps_cuda, select_cuda
+from i2pnet_tpu_torch.ops import (conv_cuda, conv_train_cuda, cv_cuda, fps_cuda, pool_route_cuda,
+                                  select_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -191,6 +192,102 @@ def test_bn_pool_kernels_match_plain(dev, B, H, W, C, stride, ties):
     dz = ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, stride)
     torch.cuda.synchronize()
     assert torch.equal(dz, ct.bn_pool_bwd_plain(y, sc, sh, taps, g, stride))
+
+
+# B, H, W, C, stride, ties: both strides, ties, ragged 8x8 tiles (H or W
+# not a multiple of 8, odd sizes), the widths 8-128
+RECOMPUTE_CASES = [
+    (2, 16, 32, 16, 1, True),
+    (2, 16, 32, 16, 2, True),
+    (1, 13, 21, 32, 1, False),
+    (1, 13, 21, 32, 2, True),
+    (2, 10, 32, 64, 2, False),
+    (1, 5, 16, 128, 1, True),
+    (1, 10, 32, 128, 2, False),
+    (1, 7, 9, 24, 2, True),
+    (3, 9, 17, 8, 1, False),
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,stride,ties", RECOMPUTE_CASES)
+def test_bn_pool_notap_and_recompute_kernels_match_plain(dev, B, H, W, C, stride, ties):
+    """(e) out and (f) dz bit for bit against their plain versions, and
+    against (c)'s out and (d)'s dz with (c)'s taps: the same bf16 values
+    scanned in the same order, dz summed in tap order."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(C * H + stride)
+    y = rng.normal(size=(B, H, W, C))
+    if ties:
+        y = np.round(y * 2) / 2
+    y = torch.from_numpy(y.astype(np.float32)).to(dev, torch.bfloat16)
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+    sh = torch.from_numpy((0.1 * rng.normal(size=C)).astype(np.float32)).to(dev)
+    before = dict(ct.launches)
+    out = ct.bn_pool_fwd_notap_cuda(y, sc, sh, stride)
+    assert torch.equal(out, ct.bn_pool_fwd_notap_plain(y, sc, sh, stride))
+    out_idx, taps = ct.bn_pool_fwd_cuda(y, sc, sh, stride)
+    assert torch.equal(out, out_idx)
+    g = _bf16(dev, rng, *out.shape)
+    dz = ct.bn_pool_bwd_recompute_cuda(y, sc, sh, g, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, ct.bn_pool_bwd_recompute_plain(y, sc, sh, g, stride))
+    assert torch.equal(dz, ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, stride))
+    assert ct.launches["bn_pool_fwd_notap"] == before["bn_pool_fwd_notap"] + 1
+    assert ct.launches["bn_pool_bwd_recompute"] == before["bn_pool_bwd_recompute"] + 1
+
+
+# B, Ho, Wo, C, stride, ties
+ROUTE_CASES = [
+    (2, 8, 16, 16, 1, True),
+    (2, 8, 16, 16, 2, True),
+    (1, 5, 7, 32, 1, False),
+    (1, 5, 7, 32, 2, True),
+    (2, 10, 32, 64, 1, False),
+    (1, 5, 16, 128, 2, False),
+    (1, 3, 5, 3, 2, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Ho,Wo,C,stride,ties", ROUTE_CASES)
+def test_pool_route_kernel_matches_plain(dev, B, Ho, Wo, C, stride, ties, dtype):
+    """Bit for bit: the routed terms added in tap order in ct's dtype on
+    both sides; argtap from the pool of a (tied) input, some cells 9."""
+    rng = np.random.default_rng(C + Ho + stride)
+    x = rng.normal(size=(B, Ho * stride, Wo * stride, C))
+    if ties:
+        x = np.round(x * 2) / 2
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    y = torch.nn.functional.max_pool2d(x.float().permute(0, 3, 1, 2), 3, stride, 1)
+    y = y.permute(0, 2, 3, 1).to(dtype)
+    argtap = pool_route_cuda.pool3_argtap(x, y, stride)
+    argtap[:, 0] = 9
+    ct_ = torch.from_numpy(rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)).to(dev, dtype)
+    key = f"pool_route_s{stride}"
+    before = pool_route_cuda.launches[key]
+    dx = pool_route_cuda.pool_route_cuda(argtap.contiguous(), ct_, stride)
+    torch.cuda.synchronize()
+    assert pool_route_cuda.launches[key] == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert torch.equal(dx, pool_route_cuda.pool_route_plain(argtap, ct_, stride))
+
+
+def test_pool_kernels_reject_what_they_cannot_take(dev):
+    at = torch.zeros(1, 4, 4, 8, device=dev, dtype=torch.uint8)
+    with pytest.raises(ValueError):  # stride 3
+        pool_route_cuda.pool_route_cuda(at, torch.zeros(1, 4, 4, 8, device=dev), 3)
+    with pytest.raises(ValueError):  # f16 cotangent
+        pool_route_cuda.pool_route_cuda(at, torch.zeros(1, 4, 4, 8, device=dev, dtype=torch.float16), 1)
+    with pytest.raises(ValueError):  # int32 argtap
+        pool_route_cuda.pool_route_cuda(at.int(), torch.zeros(1, 4, 4, 8, device=dev), 1)
+    y = torch.zeros(1, 8, 8, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 12 channels: not a multiple of 8
+        conv_train_cuda.bn_pool_fwd_notap_cuda(y, torch.ones(12, device=dev),
+                                               torch.zeros(12, device=dev), 1)
+    y = torch.zeros(1, 8, 8, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a cotangent of the wrong shape
+        conv_train_cuda.bn_pool_bwd_recompute_cuda(y, torch.ones(16, device=dev),
+                                                   torch.zeros(16, device=dev), y, 2)
 
 
 def test_train_kernels_reject_what_they_cannot_take(dev):

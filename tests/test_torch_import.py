@@ -10,13 +10,19 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the projection family's modules, loaded with the rest of the package
+# the projection family's modules and the pool backwards' (the route
+# kernel's wrapper; the train step and encoder modules that select them),
+# loaded with the rest of the package
 NEW = [
     "i2pnet_tpu_torch.ops.projection",
     "i2pnet_tpu_torch.ops.dense_window",
     "i2pnet_tpu_torch.ops.select_cuda",
     "i2pnet_tpu_torch.nn.proj_backbone",
     "i2pnet_tpu_torch.models.i2pnet_proj",
+    "i2pnet_tpu_torch.ops.pool_route_cuda",
+    "i2pnet_tpu_torch.ops.conv_train_cuda",
+    "i2pnet_tpu_torch.nn.layers",
+    "i2pnet_tpu_torch.train.step",
 ]
 
 PROBE = f"NEW = {NEW!r}\n" + """
@@ -50,5 +56,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (27 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 27
+    # the walk found the whole package (28 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 28

@@ -443,8 +443,25 @@ def _bn_pool_sas(y, sc, sh, stride):
 
 class _BnPoolRecompute(torch.autograd.Function):
     """(y, sc, sh) -> pooled bf16 with kernel (e) forward, saving no taps;
-    the backward is (f) (JAX's pallas backend, :996-1007) or, given
-    ``formulation``, autograd of that plain formulation (native, sas)."""
+    the backward is (f) (JAX's pallas backend, :996-1007)."""
+
+    @staticmethod
+    def forward(ctx, y, sc, sh, stride):
+        ctx.save_for_backward(y, sc, sh)
+        ctx.stride = stride
+        return bn_pool_fwd_notap(y, sc, sh, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sc, sh = ctx.saved_tensors
+        dz = bn_pool_bwd_recompute(y, sc, sh, g.to(_BF).contiguous(), ctx.stride)
+        return *_bn_pool_grads(dz, y, sc), None
+
+
+class _BnPoolFormulation(torch.autograd.Function):
+    """(y, sc, sh) -> pooled bf16 with kernel (e) forward, saving no taps;
+    the backward is autograd of a plain formulation (JAX's native and sas
+    backends, :1009-1051)."""
 
     @staticmethod
     def forward(ctx, y, sc, sh, stride, formulation):
@@ -455,14 +472,10 @@ class _BnPoolRecompute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, sc, sh = ctx.saved_tensors
-        g = g.to(_BF).contiguous()
-        if ctx.formulation is None:
-            dz = bn_pool_bwd_recompute(y, sc, sh, g, ctx.stride)
-            return *_bn_pool_grads(dz, y, sc), None, None
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (y, sc, sh)]
             out = ctx.formulation(*leaves, ctx.stride)
-            dy, dsc, dsh = torch.autograd.grad(out, leaves, g)
+            dy, dsc, dsh = torch.autograd.grad(out, leaves, g.to(_BF))
         return dy, dsc, dsh, None, None
 
 
@@ -486,7 +499,10 @@ def bn_pool(y, sc, sh, stride: int):
     bwd = os.environ.get("I2PNET_POOL_BWD", "idx")
     if bwd == "idx":
         return _BnPool.apply(y, sc, sh, stride)
-    return _BnPoolRecompute.apply(y, sc, sh, stride, _FORMULATIONS.get(bwd))
+    if bwd in _FORMULATIONS:
+        return _BnPoolFormulation.apply(y, sc, sh, stride, _FORMULATIONS[bwd])
+    # "pallas", and any other value, as JAX's ``.get(bwd, f_bwd_pallas)`` (:1081)
+    return _BnPoolRecompute.apply(y, sc, sh, stride)
 
 
 def fused_stage_train(x, blocks, strides, eps: float = 1e-5):

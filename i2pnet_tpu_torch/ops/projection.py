@@ -214,13 +214,11 @@ def select_window_features(feat_grid: torch.Tensor, args: torch.Tensor, out_h: i
     cand, _ = window_candidates(feat_grid, out_h, out_w, qstride, stride, kernel_size, shift)
     sentinel = feat_grid[:, 0, 0, :].reshape(B, 1, 1, C).expand(B, N, 1, C)
     cand = torch.cat([cand, sentinel], dim=2)
-    if cand.is_cuda:
-        # the same values; on the card torch.gather's backward scatter-adds
-        # with atomics (copy-filled slots repeat), while indexing's
-        # accumulates repeated slots in a fixed order: a repeatable step
-        rows = torch.arange(B, device=cand.device)[:, None, None]
-        return cand[rows, torch.arange(N, device=cand.device)[None, :, None], args]
-    return torch.gather(cand, 2, args[..., None].expand(B, N, K, C))
+    # indexing, not torch.gather: on the card gather's backward scatter-adds
+    # with atomics, and copy-filled slots repeat; indexing's backward
+    # accumulates repeated slots in a fixed order, so a step repeats bit for bit
+    rows = torch.arange(B, device=cand.device)[:, None, None]
+    return cand[rows, torch.arange(N, device=cand.device)[None, :, None], args]
 
 
 def select_window_features_multi(feat_grids: Sequence[torch.Tensor], args: torch.Tensor,

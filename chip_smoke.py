@@ -21,7 +21,9 @@ each raising on failure:
    0.01 * max(|ref|, 1); cv1 within 5e-3), TF32 off;
 4. time the forward (median of 3 windows of 20 iterations, CUDA events),
    the forward replayed as a CUDA graph, and each kernel's launches of one
-   forward against the plain version's, both replayed as CUDA graphs;
+   forward against the plain version's, both replayed as CUDA graphs; FPS
+   also per level (each call of the forward), in us per step, at the
+   launcher's thread count and at 128, 256, 512 and 1024 threads a row;
 5. train: one step with every kernel call captured; check the launches in
    one step (conv fwd 15, conv dx 14, conv dw 15, bn_pool fwd 15, bn_pool
    bwd 15, FPS 4, the eval kernels 0), a finite loss, that sx, sq and every
@@ -33,7 +35,8 @@ each raising on failure:
    and bit-identical when repeated, bn_pool out, taps and dz exactly;
 7. time the train step (median of 3 windows of 20 steps) and each train
    kernel's launches of one step by graph replay, beside its plain version
-   and a PyTorch library call for the same function where one exists;
+   and a PyTorch library call for the same function where one exists; dw
+   also per call shape, beside ``conv2d_weight`` and its bound;
 8. proj eval: run the forward; check out3/out4 (finite, unit quaternions,
    a second forward identical) and the launches in one forward (select 5,
    encoder block 15, FPS 0, cv1 0);
@@ -313,10 +316,13 @@ def library_calls(name, calls):
         ops = [(g.permute(0, 3, 1, 2), wt.flip(1, 2).permute(3, 0, 1, 2)) for (g, wt), _ in calls]
         return lambda: [torch.nn.grad.conv2d_input(
             (g.shape[0], w.shape[1], g.shape[2], g.shape[3]), w, g, padding=1) for g, w in ops]
-    if name == "conv_dw":  # the weight gradient
+    if name == "conv_dw":  # the weight gradient; lib(k) runs call k alone
         ops = [(x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)) for (x, g), _ in calls]
-        return lambda: [torch.nn.grad.conv2d_weight(
-            x, (g.shape[1], x.shape[1], 3, 3), g, padding=1) for x, g in ops]
+
+        def lib(k=None):
+            return [torch.nn.grad.conv2d_weight(x, (g.shape[1], x.shape[1], 3, 3), g, padding=1)
+                    for x, g in (ops if k is None else ops[k:k + 1])]
+        return lib
     if name.startswith("pool_route"):  # the pool's backward on the same routing
         ops = [route_as_max_pool_indices(*a) for a, _ in calls]
         return lambda: [torch.ops.aten.max_pool2d_with_indices_backward(
@@ -400,6 +406,36 @@ def kernel_row(k, launches, err, calls, card):
         "replaces": k["replaces"], "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
     }
+
+
+def fps_levels(calls, card) -> None:
+    """Each FPS call of one forward (one level of the free path) by graph
+    replay, at the launcher's thread count (auto) and at 128, 256, 512 and
+    1024 threads a row, in ms and us per step (npoint dependent steps)."""
+    from i2pnet_tpu_torch.ops import fps_cuda
+
+    for (xyz, npoint), _ in calls:
+        parts = []
+        for threads in (0, 128, 256, 512, 1024):
+            if threads and xyz.shape[1] > 32 * threads:
+                continue
+            ms = replay_ms(lambda: fps_cuda.fps_cuda(xyz, npoint, threads))
+            parts.append(f"{threads or 'auto'} threads {ms:.4f} ms = {ms * 1e3 / npoint:.3f} us/step")
+        print(f"fps level {tuple(xyz.shape)} -> {npoint}: {', '.join(parts)} on {card}")
+
+
+def dw_shapes(calls, card) -> None:
+    """Each conv_dw call of one train step by graph replay, beside
+    ``conv2d_weight`` on the same operands and the call's bound."""
+    from i2pnet_tpu_torch.ops import conv_train_cuda
+
+    lib = library_calls("conv_dw", calls)
+    for k, ((x, g), out) in enumerate(calls):
+        ms = replay_ms(lambda: conv_train_cuda.conv_dw_cuda(x, g))
+        l_ms = replay_ms(lambda: lib(k))
+        b_ms, _ = BOUNDS["conv_dw"]((x, g), out)
+        print(f"conv_dw call {k} {tuple(x.shape)} -> {g.shape[-1]}: kernel {ms:.4f} ms, "
+              f"conv2d_weight {l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
 
 
 def check_outputs(out, out2, label: str) -> None:
@@ -599,6 +635,12 @@ def main() -> int:
         for k in eval_kernels:
             rows.append(kernel_row(k, eval_launches[k["name"]], errors[k["name"]],
                                    captures[k["name"]].calls, card))
+        # FPS runs npoint dependent steps a call: its time per step
+        fps_row = next(r for r in rows if r["name"] == "fps")
+        steps = sum(a[1] for a, _ in captures["fps"].calls)
+        fps_row["per_step_us"] = fps_row["ms"] * 1e3 / steps
+        print(f"fps: {fps_row['per_step_us']:.4f} us per step ({steps} steps a forward) on {card}")
+        fps_levels(captures["fps"].calls, card)
     if "--profile" in sys.argv[1:]:
         with torch.no_grad():
             profile_run(forward, card, "forward")
@@ -701,6 +743,7 @@ def main() -> int:
         for k in train_kernels:
             rows.append(kernel_row(k, train_launches[k["name"]], errors[k["name"]],
                                    captures[k["name"]].calls, card))
+        dw_shapes(captures["conv_dw"].calls, card)
     if "--profile" in sys.argv[1:]:
         profile_run(train_step, card, "train_step")
 

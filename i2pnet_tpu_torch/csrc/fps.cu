@@ -5,21 +5,41 @@
 // point's running minimum squared distance to the chosen set, pick the
 // argmax, ties to the lowest index; (B, N, 3) f32 -> (B, npoint) int64.
 //
-// What bounds it on the H100: npoint strictly sequential steps, each a
-// distance update over N points and a block-wide argmax. The work per step
-// is tiny (N = 8192: 8 points per thread), so each step costs its latency:
-// the reduction and its barrier. Device memory is touched once.
+// What bounds it on the H100: latency. npoint strictly sequential steps,
+// each a distance update over N points and a block-wide argmax; the work
+// per step is tiny (N = 8192: 8 points per thread at 1024 threads), so a
+// step costs its critical path: the argmax and its barrier. Device memory
+// is touched once.
 //
-// The design against that: each thread keeps its PER points and their
-// running distances in registers for the whole loop, and a copy of the
-// cloud sits in shared memory only so every thread can read the chosen
-// centroid. The argmax is a warp shuffle reduction, then every warp reduces
-// the 32 per-warp winners itself from a double-buffered shared array, so a
-// step needs one __syncthreads and no second broadcast barrier. Two other
-// shapes measured slower at N = 8192: 256 threads with 32 points each (the
-// per-thread argmax chain grows), and a cluster of 8 blocks per row
+// The design against that:
+// - Thread t owns the contiguous points [t * PER, (t + 1) * PER), so lane
+//   order and warp order are index order. Each thread keeps its points and
+//   running distances in registers for the whole loop; a strict > over
+//   increasing j keeps its lowest index among equal maxima.
+// - The running distances are >= +0.0 (or +inf before a point's first
+//   update), so their bit patterns order as uint32. A warp's argmax is then
+//   one __reduce_max_sync (redux.sync), a __ballot_sync of the lanes that
+//   hold the maximum, __ffs for the lowest such lane and one __shfl_sync
+//   of its index: no 5-round shuffle chain carrying the index. Slots past
+//   N hold +0.0, which never beats a real point of lower index.
+// - Lane 0 of each warp writes (bits, index) into a double-buffered shared
+//   array; after one __syncthreads every warp repeats redux + ballot over
+//   the nwarps entries itself, so no second broadcast barrier is needed.
+// - The cloud is loaded coalesced into shared memory (x, y, z planes), from
+//   which each thread takes its points and every thread reads the chosen
+//   centroid.
+// The launcher picks the thread count per N (fps_threads): 256 threads a
+// row (a thread a point up to 256 points) were the fastest or within 3% of
+// it at every level of the free path on the H100 (chip_smoke.py times 128,
+// 256, 512 and 1024): with no shuffle chain, a barrier across 8 warps and
+// their 8-entry argmax cost less than the longer per-thread scan (32 points
+// at N = 8192) adds. Measured there: 0.558 us a step over the four levels,
+// 0.718 at 8192 points (1024 threads: 0.836); the earlier design -- strided
+// ownership, a 5-round shuffle argmax carrying the index, 1024 threads --
+// took 1.02-1.03. Slower still, and not kept: a cluster of 8 blocks per row
 // exchanging winners through distributed shared memory (its barrier costs
-// over 1 us a step).
+// over 1 us a step). The first level stays the slowest: 8192 points on one
+// SM cost ~12 instructions each a step.
 //
 // Bit-identical to the plain loop: the squared distance is
 // (dx*dx + dy*dy) + dz*dz with no FMA contraction (__fmul_rn/__fadd_rn), the
@@ -27,33 +47,23 @@
 
 #include "common.cuh"
 
-#include <climits>
-
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kFewThreads = 256;
 
-__device__ __forceinline__ void argmax_step(float& best, int& besti, float od, int oi) {
-  if (od > best || (od == best && oi < besti)) {
-    best = od;
-    besti = oi;
-  }
+// lowest lane among those whose bits equal the warp's maximum (valid lanes only)
+__device__ __forceinline__ int argmax_lane(unsigned bits, bool valid, unsigned& wmax) {
+  wmax = __reduce_max_sync(0xffffffffu, valid ? bits : 0u);
+  const unsigned hit = __ballot_sync(0xffffffffu, valid && bits == wmax);
+  return __ffs(hit) - 1;
 }
 
-__device__ __forceinline__ void warp_argmax(float& best, int& besti) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, besti, off);
-    argmax_step(best, besti, od, oi);
-  }
-}
-
-template <int PER>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int PER, int MAXT>  // MAXT: the most threads it is launched with
+__global__ void __launch_bounds__(MAXT)
 fps_kernel(const float* __restrict__ xyz, int N, int npoint, long long* __restrict__ out) {
   extern __shared__ float cloud[];  // x plane, y plane, z plane: 3 * N floats
-  __shared__ float red_d[2][32];
+  __shared__ unsigned red_d[2][32];
   __shared__ int red_i[2][32];
 
   const int b = blockIdx.x;
@@ -64,87 +74,104 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, long long* __restri
   float* sx = cloud;
   float* sy = cloud + N;
   float* sz = cloud + 2 * N;
+  for (int i = threadIdx.x; i < 3 * N; i += blockDim.x) cloud[(i % 3) * N + i / 3] = p[i];
+  __syncthreads();
 
+  const int first = threadIdx.x * PER;
   float px[PER], py[PER], pz[PER], dist[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * blockDim.x;
-    if (i < N) {
-      px[j] = p[3 * i];
-      py[j] = p[3 * i + 1];
-      pz[j] = p[3 * i + 2];
-      sx[i] = px[j];
-      sy[i] = py[j];
-      sz[i] = pz[j];
-    } else {
-      px[j] = py[j] = pz[j] = 0.f;
-    }
-    dist[j] = INFINITY;
+    const int i = first + j;
+    const bool real = i < N;
+    px[j] = real ? sx[i] : 0.f;
+    py[j] = real ? sy[i] : 0.f;
+    pz[j] = real ? sz[i] : 0.f;
+    dist[j] = real ? INFINITY : 0.f;  // padding: +0.0, never above a real point of lower index
   }
-  __syncthreads();
 
   long long* o = out + static_cast<size_t>(b) * npoint;
   int far = 0;
   for (int it = 0; it < npoint; ++it) {
     if (threadIdx.x == 0) o[it] = far;
     const float cx = sx[far], cy = sy[far], cz = sz[far];
-    float best = -INFINITY;
-    int besti = INT_MAX;
+    unsigned best = 0u;
+    int besti = first;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * blockDim.x;
-      if (i < N) {
-        const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        dist[j] = fminf(dist[j], d);
-        // i grows with j: a strict > keeps the lowest index among equals
-        if (dist[j] > best) {
-          best = dist[j];
-          besti = i;
-        }
+    for (int j = 0; j < PER; ++j) {  // a padding slot's +0.0 stays +0.0: no bounds check
+      const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      dist[j] = fminf(dist[j], d);
+      const unsigned bits = __float_as_uint(dist[j]);
+      if (j == 0 || bits > best) {  // strict >: the lowest index among equals
+        best = bits;
+        besti = first + j;
       }
     }
-    warp_argmax(best, besti);
+    unsigned wmax;
+    const int src = argmax_lane(best, true, wmax);
+    const int widx = __shfl_sync(0xffffffffu, besti, src);
     const int buf = it & 1;
     if (lane == 0) {
-      red_d[buf][warp] = best;
-      red_i[buf][warp] = besti;
+      red_d[buf][warp] = wmax;
+      red_i[buf][warp] = widx;
     }
     __syncthreads();
-    best = lane < nwarps ? red_d[buf][lane] : -INFINITY;
-    besti = lane < nwarps ? red_i[buf][lane] : INT_MAX;
-    warp_argmax(best, besti);
-    far = besti;
+    const bool valid = lane < nwarps;
+    const int wsrc = argmax_lane(valid ? red_d[buf][lane] : 0u, valid, wmax);
+    far = red_i[buf][wsrc];
   }
 }
 
+template <int PER, int MAXT>
+cudaError_t launch_t(const float* xyz, int B, int N, int npoint, long long* out, int threads,
+                     cudaStream_t stream) {
+  const int smem = 3 * N * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(fps_kernel<PER, MAXT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fps_kernel<PER, MAXT><<<B, threads, smem, stream>>>(xyz, N, npoint, out);
+  return cudaGetLastError();
+}
+
+// fewer threads allow more registers a thread, for the larger PER
 template <int PER>
 cudaError_t launch(const float* xyz, int B, int N, int npoint, long long* out, int threads,
                    cudaStream_t stream) {
-  const int smem = 3 * N * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(fps_kernel<PER>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  fps_kernel<PER><<<B, threads, smem, stream>>>(xyz, N, npoint, out);
-  return cudaGetLastError();
+  if (threads <= 256) return launch_t<PER, 256>(xyz, B, N, npoint, out, threads, stream);
+  if (threads <= 512) return launch_t<PER, 512>(xyz, B, N, npoint, out, threads, stream);
+  return launch_t<PER, kMaxThreads>(xyz, B, N, npoint, out, threads, stream);
+}
+
+// The thread count the launcher takes for N points when the caller names
+// none: a point a thread up to 256 points, else 256 threads (8 warps), the
+// fastest of 128-1024 at every level of the free path on the H100
+// (chip_smoke.py's sweep): fewer warps make the barrier and the cross-warp
+// argmax cheaper than the longer scan of each thread costs. Past 8192
+// points, enough threads for 32 points each.
+int fps_threads(int N) {
+  const int want = N <= kFewThreads ? N : max(kFewThreads, (N + 31) / 32);
+  return (want + 31) / 32 * 32;
 }
 
 }  // namespace
 
 // xyz: (B, N, 3) f32 contiguous; out: (B, npoint) int64. N <= 16384.
-extern "C" int fps_launch(const void* xyz, int B, int N, int npoint, void* out, void* stream) {
-  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
+// threads: a multiple of 32 in [32, 1024] with N <= 32 * threads, or 0 for
+// fps_threads(N).
+extern "C" int fps_launch(const void* xyz, int B, int N, int npoint, void* out, int threads,
+                          void* stream) {
+  if (threads == 0) threads = fps_threads(N);
+  if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads) return cudaErrorInvalidValue;
   const int per = (N + threads - 1) / threads;
   const auto* x = static_cast<const float*>(xyz);
   auto* o = static_cast<long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (per <= 1) err = launch<1>(x, B, N, npoint, o, threads, s);
-  else if (per <= 2) err = launch<2>(x, B, N, npoint, o, threads, s);
-  else if (per <= 4) err = launch<4>(x, B, N, npoint, o, threads, s);
-  else if (per <= 8) err = launch<8>(x, B, N, npoint, o, threads, s);
-  else if (per <= 16) err = launch<16>(x, B, N, npoint, o, threads, s);
-  else err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (per <= 1) return launch<1>(x, B, N, npoint, o, threads, s);
+  if (per <= 2) return launch<2>(x, B, N, npoint, o, threads, s);
+  if (per <= 4) return launch<4>(x, B, N, npoint, o, threads, s);
+  if (per <= 8) return launch<8>(x, B, N, npoint, o, threads, s);
+  if (per <= 16) return launch<16>(x, B, N, npoint, o, threads, s);
+  if (per <= 32) return launch<32>(x, B, N, npoint, o, threads, s);
+  return cudaErrorInvalidValue;
 }

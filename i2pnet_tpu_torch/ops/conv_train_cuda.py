@@ -9,7 +9,9 @@ The kernels, each replacing one TPU kernel of that module:
       conv + bias, bf16 operands, f32 sums, bf16 out; the input gradient is
       the same kernel on the flipped-transposed weights with no bias;
   (b) ``conv_dw_cuda`` (``_dw_kernel`` :212 with ``unpack_dw``): the f32
-      weight gradient, split over pixel tiles and summed in a fixed order;
+      weight gradient in one launch: each block streams a chunk of image
+      rows through a cp.async ring, once per operand, and the chunk
+      partials are summed in a fixed order (``_dw_plan`` makes the split);
   (c) ``bn_pool_fwd_cuda`` (``_bn_pool_fwd_idx_kernel`` :656): ``y * sc +
       sh`` in f32, LeakyReLU(0.1), bf16, the 3x3 max-pool (stride s, pad 1),
       and the winning tap of each pooled cell (the first max in row-major
@@ -31,7 +33,10 @@ tie as ``jnp.maximum`` does; ``F.max_pool2d``, first max); any other value
 needs no gradient runs (e) alone on every backend, as the primal of JAX's
 custom VJP.
 
-All six are bound by bytes on the H100 (see the source notes). Layouts
+All six are bound by bytes on the H100 (see the source notes). (b) streams
+x and g once each through a shared-memory ring and sums in one launch;
+an earlier design, which read x once per output-channel tile, staged it by
+transposing stores and took a second launch, ran 2.4x slower. Layouts
 are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
 weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
 ``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts
@@ -51,21 +56,26 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from i2pnet_tpu_torch.ops import _build
 
-# kernel launches since the last reset (read by chip_smoke.py); conv_dw
-# counts one per call, which is two CUDA launches (tiles, then their sum)
+# kernel launches since the last reset (read by chip_smoke.py); one per
+# call, each one CUDA launch
 launches = dict.fromkeys(("conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd",
                           "bn_pool_fwd_notap", "bn_pool_bwd_recompute"), 0)
 
 _BF = torch.bfloat16
-# (b)'s split: about this many blocks per call, each summing a fixed run of
-# 8x16-pixel tiles (a function of the shape alone, so the sum order is too)
-_DW_BLOCKS = 528
+# (b)'s split (chip_smoke.py's per-shape times on the H100 chose them)
+_DW_BLOCKS = 240
+_DW_MIN_ROWS = 8
+_DW_SLAB = 128  # pixels a column slab is wide at most
+_DW_RAW_CIN = 5  # input channels up to which the x rows stay raw
+_DW_CLUSTER = 8  # consecutive chunks whose blocks add their sums together
+_DW_COUNTERS = 1024  # int32 arrival counters per device (one a tile), zero between calls
 
 
 # ---- plain versions --------------------------------------------------------
@@ -169,7 +179,7 @@ def _conv_lib() -> ctypes.CDLL:
     v, i = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_launch.argtypes = [v, v, v, v, i, i, i, i, i, v]
     lib.conv3x3_launch.restype = i
-    lib.conv_dw_launch.argtypes = [v, v, v, v, i, i, i, i, i, i, i, v]
+    lib.conv_dw_launch.argtypes = [v, v, v, v, v] + [i] * 12 + [v]
     lib.conv_dw_launch.restype = i
     return lib
 
@@ -232,12 +242,83 @@ def conv_dx_cuda(g, wt):
     return _conv3x3(g, wt, None, "conv_dx")
 
 
-def _dw_split(B: int, H: int, W: int, cin: int, cout: int):
-    """(tiles per block, blocks) of kernel (b)'s split over 8x16 tiles."""
-    tiles = B * -(-H // 8) * -(-W // 16)
-    pairs = -(-cin // 16) * (cout // (16 if cout % 16 == 0 else 8))
-    per = -(-tiles // max(1, min(tiles, -(-_DW_BLOCKS // pairs))))
-    return per, -(-tiles // per)
+class DwPlan(NamedTuple):
+    """Kernel (b)'s split of one call, a function of the shape alone.
+
+    Chunk c covers batch row ``c // (slabs * rowchunks)``, the columns
+    ``[s * sw, (s + 1) * sw)`` with ``s = c // rowchunks % slabs`` and the
+    rows ``[rc * rows, (rc + 1) * rows)`` with ``rc = c % rowchunks``, each
+    clipped to the image (``dw_chunks``). Grid: (nchunks rounded up to
+    clusters of ``_DW_CLUSTER``, ci tiles, co tiles); ci_t x co_t is a
+    block's channel tile, where for cin <= 5 (the raw-row path) ci_t is the
+    M of its 3 x 16 (kh, kw, channel) rows. A cluster's blocks add their
+    sums in block order, then the clusters' partials are added in cluster
+    order."""
+
+    raw: bool
+    ci_t: int
+    co_t: int
+    citiles: int
+    cotiles: int
+    sw: int
+    slabs: int
+    rows: int
+    rowchunks: int
+    nchunks: int
+
+    @property
+    def nclusters(self) -> int:
+        return -(-self.nchunks // _DW_CLUSTER)
+
+    @property
+    def tile_floats(self) -> int:
+        """f32 of one block's partial: M x co_t."""
+        return (self.ci_t if self.raw else 9 * self.ci_t) * self.co_t
+
+
+def _dw_plan(B: int, H: int, W: int, cin: int, cout: int) -> DwPlan:
+    raw = cin <= _DW_RAW_CIN
+    if raw:  # 3 kh x 16 rows of (kw, ci)
+        ci_t, citiles = 48, 1
+    else:
+        ci_t = min(64, max(16, 1 << (cin - 1).bit_length()))
+        citiles = -(-cin // ci_t)
+    co_t = 16 if cout <= 16 else 32
+    cotiles = -(-cout // co_t)
+    slabs = -(-W // _DW_SLAB)
+    sw = -(-(-(-W // slabs)) // 16) * 16
+    # rows per chunk: about _DW_BLOCKS blocks (one wave at two a SM), but at
+    # least _DW_MIN_ROWS rows a block, which the fixed cost of a block (its
+    # first loads, its sums) would otherwise dominate
+    tiles = citiles * cotiles
+    rows = min(H, max(_DW_MIN_ROWS, -(-B * slabs * H // -(-_DW_BLOCKS // tiles))))
+    rowchunks = -(-H // rows)
+    rows = -(-H // rowchunks)
+    return DwPlan(raw, ci_t, co_t, citiles, cotiles, sw, slabs, rows, rowchunks,
+                  B * slabs * rowchunks)
+
+
+def dw_chunks(plan: DwPlan, H: int, W: int):
+    """The (batch row, row range, column range) of every chunk, in chunk
+    order, as kernel (b) reads them."""
+    for c in range(plan.nchunks):
+        b, s, rc = c // (plan.slabs * plan.rowchunks), c // plan.rowchunks % plan.slabs, \
+            c % plan.rowchunks
+        yield (b, (rc * plan.rows, min(H, (rc + 1) * plan.rows)),
+               (s * plan.sw, min(W, (s + 1) * plan.sw)))
+
+
+_dw_counters = {}
+
+
+def _dw_counter_buffer(device) -> torch.Tensor:
+    """The device's arrival counters of kernel (b): zeroed once, left zero
+    by every call (the last block resets them), so a call allocates none
+    and a CUDA graph may capture it. Calls on one device share them, so
+    they must not run concurrently on two streams."""
+    if device not in _dw_counters:
+        _dw_counters[device] = torch.zeros(_DW_COUNTERS, dtype=torch.int32, device=device)
+    return _dw_counters[device]
 
 
 def conv_dw_cuda(x, g):
@@ -248,13 +329,17 @@ def conv_dw_cuda(x, g):
     _require(g, _BF, (B, H, W, cout), "conv_dw g")
     if cout % 8:
         raise ValueError(f"conv_dw: {cout} output channels, not a multiple of 8")
-    per, chunks = _dw_split(B, H, W, cin, cout)
-    partial = torch.empty(chunks, 9 * cin * cout, dtype=torch.float32, device=x.device)
+    p = _dw_plan(B, H, W, cin, cout)
+    tiles = p.citiles * p.cotiles
+    if tiles > _DW_COUNTERS:
+        raise ValueError(f"conv_dw: shape {(B, H, W, cin, cout)} needs too many counters")
+    work = torch.empty(tiles * p.nclusters * p.tile_floats, dtype=torch.float32, device=x.device)
     dw = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
     lib = _conv_lib()
     code = lib.conv_dw_launch(
-        _build.ptr(x), _build.ptr(g), _build.ptr(partial), _build.ptr(dw),
-        B, H, W, cin, cout, per, chunks, _build.stream_of(x))
+        _build.ptr(x), _build.ptr(g), _build.ptr(work), _build.ptr(_dw_counter_buffer(x.device)),
+        _build.ptr(dw), B, H, W, cin, cout, p.ci_t, p.co_t, p.sw, p.slabs, p.rows, p.rowchunks,
+        p.nchunks, _build.stream_of(x))
     _build.check(lib, code, "conv_dw_launch")
     launches["conv_dw"] += 1
     return dw

@@ -2,10 +2,13 @@
 PyTorch version.
 
 Replaces the TPU kernel ``i2pnet_tpu/ops/fps_pallas.py`` ``_fps_kernel``.
-On the H100 the loop is latency-bound (npoint dependent steps of a tiny
-distance update plus a block-wide argmax); the kernel keeps each thread's
-points and running distances in registers for the whole loop and pays one
-barrier per step. See the source note in ``csrc/fps.cu``.
+On the H100 the loop is latency-bound: npoint dependent steps of a tiny
+distance update plus a block-wide argmax, so a step costs the argmax's
+critical path. The kernel keeps each thread's contiguous run of points and
+their running distances in registers for the whole loop, takes each warp's
+argmax as one ``redux.sync`` on the distances' bits plus a ballot (no
+shuffle chain), and pays one barrier per step. See the source note in
+``csrc/fps.cu`` for the design and the variants measured slower.
 
 Both versions give bit-identical indices: start at index 0, squared
 distance as ``(dx*dx + dy*dy) + dz*dz`` with no fused multiply-add, argmax
@@ -51,21 +54,26 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fps")
     v, i = ctypes.c_void_p, ctypes.c_int
-    lib.fps_launch.argtypes = [v, i, i, i, v, v]
+    lib.fps_launch.argtypes = [v, i, i, i, v, i, v]
     lib.fps_launch.restype = i
     return lib
 
 
-def fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """Launch ``csrc/fps.cu`` on a CUDA tensor (B, N, 3) f32."""
+def fps_cuda(xyz: torch.Tensor, npoint: int, threads: int = 0) -> torch.Tensor:
+    """Launch ``csrc/fps.cu`` on a CUDA tensor (B, N, 3) f32. ``threads``
+    per batch row (a multiple of 32, at most 1024, N <= 32 * threads); 0
+    takes the launcher's choice for N."""
     global launches
     _build.require_cuda(xyz, torch.float32, "fps")
     B, N, C = xyz.shape
     if C != 3 or not 0 < N <= MAX_POINTS or not 0 < npoint <= N:
         raise ValueError(f"fps: unsupported shape {tuple(xyz.shape)} -> {npoint}")
+    if threads and (threads % 32 or not 32 <= threads <= 1024 or N > 32 * threads):
+        raise ValueError(f"fps: unsupported thread count {threads} for {N} points")
     lib = _lib()
     out = torch.empty(B, npoint, dtype=torch.int64, device=xyz.device)
-    code = lib.fps_launch(_build.ptr(xyz), B, N, npoint, _build.ptr(out), _build.stream_of(xyz))
+    code = lib.fps_launch(_build.ptr(xyz), B, N, npoint, _build.ptr(out), threads,
+                          _build.stream_of(xyz))
     _build.check(lib, code, "fps_launch")
     launches += 1
     return out

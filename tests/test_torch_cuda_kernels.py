@@ -29,7 +29,8 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N,npoint", [(2, 100, 17), (2, 1000, 1000), (3, 4096, 512), (1, 8192, 64)])
+@pytest.mark.parametrize("B,N,npoint", [(2, 100, 17), (2, 1000, 1000), (3, 4096, 512), (1, 8192, 64),
+                                        (1, 12000, 64)])
 def test_fps_kernel_matches_plain(dev, B, N, npoint):
     rng = np.random.default_rng(N)
     xyz = torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float32)).to(dev)
@@ -39,6 +40,24 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint):
     torch.cuda.synchronize()
     assert fps_cuda.launches == before + 1
     # exact: same arithmetic order, ties to the lowest index
+    assert torch.equal(got, fps_cuda.fps_plain(xyz, npoint))
+
+
+# the four FPS levels of the free path (B, N, npoint), each at the
+# launcher's thread count (0) and at 256, 512 and 1024 threads a row
+FPS_LEVELS = [(8, 8192, 2048), (8, 2048, 1024), (8, 1024, 256), (8, 256, 64)]
+
+
+@pytest.mark.parametrize("threads", [0, 256, 512, 1024])
+@pytest.mark.parametrize("B,N,npoint", FPS_LEVELS)
+def test_fps_kernel_matches_plain_on_tied_levels(dev, B, N, npoint, threads):
+    """Coordinates on a coarse grid: equal maxima at many steps, which the
+    kernel must break to the lowest index as the plain loop does."""
+    rng = np.random.default_rng(N + threads)
+    xyz = np.round(rng.normal(size=(B, N, 3)) * 4) / 4
+    xyz = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+    got = fps_cuda.fps_cuda(xyz, npoint, threads)
+    torch.cuda.synchronize()
     assert torch.equal(got, fps_cuda.fps_plain(xyz, npoint))
 
 
@@ -107,6 +126,8 @@ def test_kernels_reject_what_they_cannot_take(dev):
         fps_cuda.fps_cuda(torch.zeros(1, 8, 3, device=dev, dtype=torch.float64), 4)
     with pytest.raises(ValueError):
         fps_cuda.fps_cuda(torch.zeros(1, fps_cuda.MAX_POINTS + 1, 3, device=dev), 4)
+    with pytest.raises(ValueError):  # 8192 points need at least 256 threads
+        fps_cuda.fps_cuda(torch.zeros(1, 8192, 3, device=dev), 4, 128)
     x = torch.zeros(1, 8, 8, 4, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # stride 3
         conv_cuda.conv_block_cuda(x, torch.zeros(3, 3, 4, 8, device=dev, dtype=torch.bfloat16),
@@ -158,6 +179,41 @@ def test_train_conv_kernels_match_plain(dev, B, H, W, cin, cout):
     assert torch.equal(dw, dw2)
     # f32 sums over B*H*W products in another order: the JAX kernel's bar
     # (tests/test_conv_pallas_train.py), 2e-3 of the largest entry
+    assert float((dw - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
+
+
+# (b) at the shapes of the free train step: the encoder's seven (cin, cout)
+# pairs, 3 -> 16 at the full image; ragged tiles with cout % 16 != 0; the
+# raw-row path at cin = 5 over two slabs; unaligned rows (cin = 6)
+DW_ENCODER_CASES = [
+    (8, 384, 1280, 3, 16),
+    (8, 192, 640, 16, 16),
+    (8, 192, 640, 16, 32),
+    (8, 96, 320, 32, 32),
+    (8, 48, 160, 32, 64),
+    (8, 24, 80, 64, 64),
+    (8, 24, 80, 64, 128),
+    (1, 37, 45, 8, 24),
+    (1, 13, 150, 5, 16),
+    (1, 11, 40, 6, 8),
+]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", DW_ENCODER_CASES)
+def test_conv_dw_kernel_at_encoder_shapes(dev, B, H, W, cin, cout):
+    """Within 2e-3 x max of the plain version, bit-identical on a repeat,
+    one launch a call, and the arrival counters left zero."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(cin * cout + H)
+    x = _bf16(dev, rng, B, H, W, cin)
+    g = _bf16(dev, rng, B, H, W, cout)
+    before = ct.launches["conv_dw"]
+    dw, dw2 = ct.conv_dw_cuda(x, g), ct.conv_dw_cuda(x, g)
+    torch.cuda.synchronize()
+    assert ct.launches["conv_dw"] == before + 2
+    assert not bool(ct._dw_counter_buffer(x.device).any())
+    assert torch.equal(dw, dw2)
+    ref = ct.conv_dw_plain(x, g)
     assert float((dw - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
 
 

@@ -64,7 +64,16 @@ each raising on failure:
    native chain (pool route 10 at stride 1, 5 at stride 2, the train
    kernels 0), every route call equal to its plain version; then the
    pallas pair and the route kernels timed as in 7 (the route's library
-   call is ``max_pool2d_with_indices_backward`` on the same routing).
+   call is ``max_pool2d_with_indices_backward`` on the same routing);
+15. past the kernels' former limits, one run with the counts at 0 (FPS
+   2, select 1, nothing else): FPS at 20000 and 40000 points (the any-N
+   kernel) and the window select with 17 x 17 slots (the shared-memory
+   path), each equal to its plain version and timed; the bf16 encoder
+   stage with 12 output channels at eval and in training, which the gates
+   send to the native chain.
+
+Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
+its conv, and phase 4 gives cv1's TFLOP/s.
 
 Prints the kernels' JSON line (times, bounds, launches on the path each
 row was timed on, and the launches on every path), then as its last line
@@ -438,6 +447,30 @@ def dw_shapes(calls, card) -> None:
               f"conv2d_weight {l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
 
 
+def block_shapes(calls, card, label: str) -> None:
+    """Each encoder-block call of one forward by graph replay, beside
+    ``F.conv2d`` (bf16, channels_last) on its conv alone -- a yardstick of
+    the conv's share, not the same function -- and the call's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from i2pnet_tpu_torch.ops import conv_cuda
+
+    total = [0.0, 0.0]
+    for k, ((x, w, sc, sh, s), out) in enumerate(calls):
+        ms = replay_ms(lambda: conv_cuda.conv_block_cuda(x, w, sc, sh, s))
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        c_ms = replay_ms(lambda: F.conv2d(xn, wn, padding=1))
+        b_ms, _ = BOUNDS["encoder_block"]((x, w, sc, sh, s), out)
+        total[0] += ms
+        total[1] += c_ms
+        print(f"encoder_block {label} call {k} {tuple(x.shape)} -> {w.shape[3]} s{s}: kernel "
+              f"{ms:.4f} ms, F.conv2d {c_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
+    print(f"encoder_block {label}: {len(calls)} calls one by one {total[0]:.4f} ms, F.conv2d "
+          f"{total[1]:.4f} ms on {card}")
+
+
 def check_outputs(out, out2, label: str) -> None:
     """out3/out4 finite (B, 7) with unit quaternions, and a second forward's
     out3 identical."""
@@ -507,6 +540,65 @@ def train_kernel_error(name, fn, plain, calls) -> float:
 
 EXACT = ("bn_pool_bwd", "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1",
          "pool_route_s2")
+
+
+LIMITS_LAUNCHES = dict(NO_LAUNCHES, fps=2, select=1)
+
+
+def past_limits(launches_of, fps_cuda, select_cuda, dev, card) -> None:
+    """FPS at 20000 and 40000 points and the window select with 17 x 17
+    slots, each equal to its plain version; the bf16 encoder stage with 12
+    output channels, which no kernel takes, on the native chain at eval and
+    in training. One run with the counts at 0: FPS 2, select 1, nothing
+    else."""
+    import numpy as np
+    import torch
+
+    from i2pnet_tpu_torch.nn.layers import RGBEncoderStage
+
+    rng = np.random.default_rng(SEED)
+    clouds = [torch.from_numpy((np.round(rng.normal(size=(2, n, 3)) * 4) / 4).astype(np.float32))
+              .to(dev) for n in (20000, 40000)]
+    grid = np.round(rng.normal(size=(2, 64, 1800, 3)) * 8) / 4
+    grid[rng.random((2, 64, 1800)) < 0.3] = 0.0
+    grid = torch.from_numpy(grid.astype(np.float32)).to(dev)
+    sel_args = (grid, 16, 225, (4, 8), (17, 17), 32, 3.0)
+    stage = RGBEncoderStage(3, (12, 16), (2, 1), torch.bfloat16).to(dev)
+    img = torch.randn(BATCH, IMG_H, IMG_W, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED))
+    got = {}
+
+    def run():
+        got["fps"] = [fps_cuda.fps_cuda(xyz, 1024) for xyz in clouds]
+        got["select"] = select_cuda.selection_multiplicity_cuda(*sel_args)
+        with torch.no_grad():
+            got["eval"] = stage.eval()(img)
+        out = stage.train()(img)
+        out.float().sum().backward()
+        got["train"] = out
+
+    launches_of("past_limits", LIMITS_LAUNCHES, run)
+    for xyz, idx in zip(clouds, got["fps"]):
+        check(torch.equal(idx, fps_cuda.fps_plain(xyz, 1024)),
+              f"fps at {tuple(xyz.shape)} differs from its plain version")
+        ms = replay_ms(lambda: fps_cuda.fps_cuda(xyz, 1024))
+        print(f"fps at {tuple(xyz.shape)} -> 1024: equal to the plain version; {ms:.3f} ms, "
+              f"{ms * 1e3 / 1024:.3f} us/step on {card}")
+    m = got["select"]
+    check(torch.equal(m, select_cuda.selection_multiplicity_plain(*sel_args)),
+          "select with 17 x 17 slots differs from its plain version")
+    check(bool((m.sum(-1) == 32).all()) and int((m[..., :-1] > 0).sum(-1).max()) > 1,
+          "select with 17 x 17 slots: rows do not sum to K, or no query found neighbours")
+    ms = replay_ms(lambda: select_cuda.selection_multiplicity_cuda(*sel_args))
+    print(f"select with 17 x 17 slots (290 with the sentinel) at {tuple(grid.shape)}: equal to "
+          f"the plain version; {ms:.3f} ms on {card}")
+    for key in ("eval", "train"):
+        check(got[key].shape == (BATCH, IMG_H // 2, IMG_W // 2, 16)
+              and bool(torch.isfinite(got[key].float()).all()), f"cout-12 stage {key} output")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in stage.parameters()), "cout-12 stage gradients")
+    print("encoder stage with 12 output channels: the native chain at eval and in training, "
+          "no kernel launched, finite outputs and gradients")
 
 
 def main() -> int:
@@ -641,6 +733,10 @@ def main() -> int:
         fps_row["per_step_us"] = fps_row["ms"] * 1e3 / steps
         print(f"fps: {fps_row['per_step_us']:.4f} us per step ({steps} steps a forward) on {card}")
         fps_levels(captures["fps"].calls, card)
+        cv1_row = next(r for r in rows if r["name"] == "cv1")
+        cv1_row["tflops"] = sum(cv1_flops(a) for a, _ in captures["cv1"].calls) / cv1_row["ms"] / 1e9
+        print(f"cv1: {cv1_row['tflops']:.1f} TFLOP/s on {card}")
+        block_shapes(captures["encoder_block"].calls, card, "free")
     if "--profile" in sys.argv[1:]:
         with torch.no_grad():
             profile_run(forward, card, "forward")
@@ -791,6 +887,11 @@ def main() -> int:
               f"{BATCH * 1000.0 / pgraph_ms:.2f} pairs/s on {card}")
         rows.append(kernel_row(select, proj_launches["select"], errors["select"],
                                captures["select"].calls, card))
+        proj_block_ms = replay_ms(lambda: [conv_cuda.conv_block_cuda(*a)
+                                           for a, _ in captures["encoder_block"].calls])
+        print(f"encoder_block proj: {proj_block_ms:.3f} ms for "
+              f"{len(captures['encoder_block'].calls)} calls (graph replay) on {card}")
+        block_shapes(captures["encoder_block"].calls, card, "proj")
         if "--profile" in sys.argv[1:]:
             profile_run(proj_forward, card, "proj_forward")
 
@@ -941,6 +1042,9 @@ def main() -> int:
         for k in route_kernels:
             rows.append(kernel_row(k, path_launches["proj_train_native_routed"][k["name"]],
                                    errors[k["name"]], route_calls[k["name"]], card))
+    # --- phase 15: shapes past the kernels' former limits
+    past_limits(launches_of, fps_cuda, select_cuda, dev, card)
+
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}
     print(json.dumps({"kernels": rows}))

@@ -231,32 +231,6 @@ __host__ __device__ constexpr size_t dw_smem_bytes(bool raw, int sw, int ci_t, i
   return ring > red ? ring : red;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices, transposed: lane l gives the row address of
-// matrix l / 8, row l % 8, and receives in r[q] matrix q's column l / 4,
-// rows 2 (l % 4) and 2 (l % 4) + 1 -- the mma fragment of a K-major operand
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
 // store(i, rows[0][i] + rows[1][i] + ... + rows[n - 1][i]) for the elements
 // i in [lo, lo + count), count <= EB * kThreads, the rows added in order. The
 // rows were written by other blocks, so they are read through L2; a thread

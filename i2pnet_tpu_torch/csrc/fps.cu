@@ -1,4 +1,4 @@
-// Farthest point sampling, one CUDA block per batch row.
+// Farthest point sampling, one CUDA block per batch row, of any size.
 //
 // Replaces the TPU kernel i2pnet_tpu/ops/fps_pallas.py _fps_kernel (:27,
 // launched by fps_pallas :68). Same function: start at index 0, keep each
@@ -41,6 +41,17 @@
 // over 1 us a step). The first level stays the slowest: 8192 points on one
 // SM cost ~12 instructions each a step.
 //
+// Clouds past the registers' reach -- N > 16384 points (the shared-memory
+// copy, 12 N bytes) or more than 32 points a thread -- take a second
+// kernel, fps_any_kernel: the same function, no size limit, simple rather
+// than fast (no shipped config reaches it). Thread t owns the points t,
+// t + T, t + 2T, ... (coalesced reads of the cloud, which stays in L2 and is
+// read again every step); the running distances sit in shared memory while
+// 4 N bytes fit (kAnySmemPoints), else in a global scratch the wrapper
+// allocates. With strided ownership lane order is not index order, so the
+// argmax reduces 64-bit keys (distance bits << 32 | ~index): the largest
+// key is the largest distance at the lowest index.
+//
 // Bit-identical to the plain loop: the squared distance is
 // (dx*dx + dy*dy) + dz*dz with no FMA contraction (__fmul_rn/__fadd_rn), the
 // order the plain version's separate tensor ops evaluate.
@@ -51,6 +62,8 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kFewThreads = 256;
+constexpr int kSmemPoints = 16384;    // the register kernel's cloud copy: 12 N bytes
+constexpr int kAnySmemPoints = 49152; // fps_any_kernel's distances in shared memory: 4 N bytes
 
 // lowest lane among those whose bits equal the warp's maximum (valid lanes only)
 __device__ __forceinline__ int argmax_lane(unsigned bits, bool valid, unsigned& wmax) {
@@ -123,6 +136,56 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, long long* __restri
   }
 }
 
+__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+// Any N: strided ownership, distances in shared memory (SMEM_DIST) or in
+// scratch (B, N) f32, the argmax over 64-bit (distance, ~index) keys.
+template <bool SMEM_DIST>
+__global__ void __launch_bounds__(kMaxThreads)
+fps_any_kernel(const float* __restrict__ xyz, int N, int npoint, long long* __restrict__ out,
+               float* __restrict__ scratch) {
+  extern __shared__ float sdist[];  // N floats when SMEM_DIST
+  __shared__ unsigned long long red[2][32];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* p = xyz + static_cast<size_t>(b) * N * 3;
+  float* dist = SMEM_DIST ? sdist : scratch + static_cast<size_t>(b) * N;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) dist[i] = INFINITY;
+  // each thread reads and writes only its own points' distances: no barrier
+
+  long long* o = out + static_cast<size_t>(b) * npoint;
+  int far = 0;
+  for (int it = 0; it < npoint; ++it) {
+    if (threadIdx.x == 0) o[it] = far;
+    const float cx = p[3 * far], cy = p[3 * far + 1], cz = p[3 * far + 2];
+    unsigned long long best = 0ull;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const float dx = p[3 * i] - cx, dy = p[3 * i + 1] - cy, dz = p[3 * i + 2] - cz;
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float m = fminf(dist[i], d);
+      dist[i] = m;
+      const unsigned long long key =
+          static_cast<unsigned long long>(__float_as_uint(m)) << 32 | (~static_cast<unsigned>(i));
+      best = key > best ? key : best;
+    }
+    best = warp_max_u64(best);
+    const int buf = it & 1;
+    if (lane == 0) red[buf][warp] = best;
+    __syncthreads();
+    best = warp_max_u64(lane < nwarps ? red[buf][lane] : 0ull);
+    far = static_cast<int>(~static_cast<unsigned>(best));
+  }
+}
+
 template <int PER, int MAXT>
 cudaError_t launch_t(const float* xyz, int B, int N, int npoint, long long* out, int threads,
                      cudaStream_t stream) {
@@ -156,17 +219,36 @@ int fps_threads(int N) {
 
 }  // namespace
 
-// xyz: (B, N, 3) f32 contiguous; out: (B, npoint) int64. N <= 16384.
-// threads: a multiple of 32 in [32, 1024] with N <= 32 * threads, or 0 for
-// fps_threads(N).
+// xyz: (B, N, 3) f32 contiguous; out: (B, npoint) int64. threads: a
+// multiple of 32 in [32, 1024], or 0 for fps_threads(N) (fps_any_kernel:
+// 1024). N <= 16384 with at most 32 points a thread takes the register
+// kernel; any other N fps_any_kernel, with its distances in shared memory
+// for N <= kAnySmemPoints, else in scratch, (B, N) f32 (null otherwise).
 extern "C" int fps_launch(const void* xyz, int B, int N, int npoint, void* out, int threads,
-                          void* stream) {
-  if (threads == 0) threads = fps_threads(N);
-  if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads) return cudaErrorInvalidValue;
-  const int per = (N + threads - 1) / threads;
+                          void* scratch, void* stream) {
+  if (threads % 32 != 0 || threads < 0 || threads > kMaxThreads || N <= 0 || npoint <= 0 ||
+      npoint > N)
+    return cudaErrorInvalidValue;
   const auto* x = static_cast<const float*>(xyz);
   auto* o = static_cast<long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (N > kSmemPoints || (threads != 0 && N > 32 * threads)) {
+    if (threads == 0) threads = kMaxThreads;
+    cudaError_t err;
+    if (N <= kAnySmemPoints) {
+      const int smem = N * static_cast<int>(sizeof(float));
+      err = cudaFuncSetAttribute(fps_any_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      fps_any_kernel<true><<<B, threads, smem, s>>>(x, N, npoint, o, nullptr);
+    } else {
+      if (scratch == nullptr) return cudaErrorInvalidValue;
+      fps_any_kernel<false><<<B, threads, 0, s>>>(x, N, npoint, o, static_cast<float*>(scratch));
+    }
+    return cudaGetLastError();
+  }
+  if (threads == 0) threads = fps_threads(N);
+  const int per = (N + threads - 1) / threads;
   if (per <= 1) return launch<1>(x, B, N, npoint, o, threads, s);
   if (per <= 2) return launch<2>(x, B, N, npoint, o, threads, s);
   if (per <= 4) return launch<4>(x, B, N, npoint, o, threads, s);

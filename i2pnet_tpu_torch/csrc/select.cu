@@ -29,6 +29,14 @@
 // lane-padded layout serve its 128-lane vector unit and are not carried
 // over.
 //
+// Windows of more than 255 slots (kh*kw + 1 > 256) take select_smem_kernel:
+// the same passes with each lane's slots held in shared memory (a warp's
+// row of S floats) instead of registers. A slot, once selected, is marked
+// taken (kTaken, above every valid distance and kInvalid), so each lane
+// still scans only its own slots, no barrier is needed, and the m row
+// counts the marks. The warps per block shrink with the window to keep
+// the block's rows within shared memory.
+//
 // Exact against the plain version (ops/select_cuda.py): the distance is
 // spelled with __fmul_rn/__fadd_rn so nvcc cannot contract it into FMAs,
 // and the argmin keeps the lowest slot among equal distances, which the
@@ -42,6 +50,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr float kInvalid = 1e10f;
+constexpr float kTaken = 2e10f;  // select_smem_kernel: a slot already selected
+constexpr int kMaxSmem = 232448 - 128;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -130,6 +140,76 @@ select_kernel(const float* __restrict__ xyz, int B, int h2, int w2, int out_h, i
   }
 }
 
+// The same function for any window: lane l's slots l, l + 32, ... in a
+// shared-memory row of S distances per warp, wpb warps a block.
+__global__ void __launch_bounds__(kWarps * 32)
+select_smem_kernel(const float* __restrict__ xyz, int B, int h2, int w2, int out_h, int out_w,
+                   int qh, int qw, int kh, int kw, int K, float dist2, float* __restrict__ m) {
+  extern __shared__ float rows[];
+  const int lane = threadIdx.x & 31;
+  const int wpb = blockDim.x >> 5;
+  const int N = out_h * out_w;
+  const int S = kh * kw;
+  float* d = rows + static_cast<size_t>(threadIdx.x >> 5) * S;
+  const long long q = static_cast<long long>(blockIdx.x) * wpb + (threadIdx.x >> 5);
+  if (q >= static_cast<long long>(B) * N) return;  // the whole warp leaves
+  const int b = static_cast<int>(q / N);
+  const int n = static_cast<int>(q % N);
+  const int crow = (n / out_w) * qh;
+  const int ccol = (n % out_w) * qw;
+  const float* g = xyz + static_cast<size_t>(b) * h2 * w2 * 3;
+  const float* c = g + (static_cast<size_t>(crow) * w2 + ccol) * 3;
+  const float cx = c[0], cy = c[1], cz = c[2];
+  const bool cvalid = sq3(cx, cy, cz) > 1e-10f;
+
+  for (int s = lane; s < S; s += 32) {
+    float v = kInvalid;
+    const int dh = s / kw;
+    const int row = crow + dh - kh / 2;
+    if (cvalid && row >= 0 && row < h2) {
+      int col = (ccol + (s - dh * kw) - kw / 2) % w2;
+      if (col < 0) col += w2;
+      const float* p = g + (static_cast<size_t>(row) * w2 + col) * 3;
+      const float px = p[0], py = p[1], pz = p[2];
+      const float dd = fmaxf(sq3(cx - px, cy - py, cz - pz), 1e-10f);
+      if (sq3(px, py, pz) > 1e-10f && dd <= dist2) v = dd;
+    }
+    d[s] = v;
+  }
+
+  int hits = 0, nearest = S;
+  if (cvalid) {
+    for (int k = 0; k < K; ++k) {
+      float best = kInvalid;
+      int slot = INT_MAX;
+      for (int s = lane; s < S; s += 32) {
+        if (d[s] < best) {  // slots grow along the scan: a strict < keeps the lowest
+          best = d[s];
+          slot = s;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, best, off);
+        const int os = __shfl_xor_sync(0xffffffffu, slot, off);
+        if (od < best || (od == best && os < slot)) {
+          best = od;
+          slot = os;
+        }
+      }
+      if (!(best < kInvalid)) break;  // no valid slot left, for every lane alike
+      if (k == 0) nearest = slot;
+      ++hits;
+      if ((slot & 31) == lane) d[slot] = kTaken;  // the owning lane alone touches it
+    }
+  }
+  const int fill_slot = cvalid ? nearest : S;
+  const int fill_n = cvalid ? K - hits : K;
+  float* row_out = m + q * (S + 1);
+  for (int s = lane; s <= S; s += 32)
+    row_out[s] = static_cast<float>((s < S && d[s] == kTaken ? 1 : 0) + (s == fill_slot ? fill_n : 0));
+}
+
 template <int PER>
 cudaError_t launch(const float* xyz, int B, int h2, int w2, int out_h, int out_w, int qh, int qw,
                    int kh, int kw, int K, float dist2, float* m, cudaStream_t stream) {
@@ -143,7 +223,9 @@ cudaError_t launch(const float* xyz, int B, int h2, int w2, int out_h, int out_w
 }  // namespace
 
 // xyz: (B, h2, w2, 3) f32 contiguous; m: (B, out_h*out_w, kh*kw + 1) f32.
-// kh*kw + 1 <= 256; (out_h - 1)*qh < h2 and (out_w - 1)*qw < w2.
+// (out_h - 1)*qh < h2 and (out_w - 1)*qw < w2; kh*kw + 1 <= 256 takes the
+// register kernel, a larger window (up to one warp's row of kh*kw floats
+// in shared memory) select_smem_kernel.
 extern "C" int select_launch(const void* xyz, int B, int h2, int w2, int out_h, int out_w, int qh,
                              int qw, int kh, int kw, int K, float dist2, void* m, void* stream) {
   const auto* x = static_cast<const float*>(xyz);
@@ -161,7 +243,19 @@ extern "C" int select_launch(const void* xyz, int B, int h2, int w2, int out_h, 
     case 6: err = launch<6>(x, B, h2, w2, out_h, out_w, qh, qw, kh, kw, K, dist2, o, s); break;
     case 7: err = launch<7>(x, B, h2, w2, out_h, out_w, qh, qw, kh, kw, K, dist2, o, s); break;
     case 8: err = launch<8>(x, B, h2, w2, out_h, out_w, qh, qw, kh, kw, K, dist2, o, s); break;
-    default: err = cudaErrorInvalidValue;
+    default: {
+      const size_t row = sizeof(float) * static_cast<size_t>(kh) * kw;
+      if (row > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+      const int wpb = static_cast<int>(kMaxSmem / row < kWarps ? kMaxSmem / row : kWarps);
+      const int smem = static_cast<int>(row * wpb);
+      err = cudaFuncSetAttribute(select_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) break;
+      const long long queries = static_cast<long long>(B) * out_h * out_w;
+      select_smem_kernel<<<static_cast<int>((queries + wpb - 1) / wpb), wpb * 32, smem, s>>>(
+          x, B, h2, w2, out_h, out_w, qh, qw, kh, kw, K, dist2, o);
+      err = cudaGetLastError();
+    }
   }
   return static_cast<int>(err);
 }

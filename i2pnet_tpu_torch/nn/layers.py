@@ -269,21 +269,23 @@ class RGBEncoderStage(nn.Module):
     (``ops/conv_cuda.py``, bias and BN folded into an f32 scale/shift); in
     training the train kernels (``ops/conv_train_cuda.py``: conv, batch
     statistics, scale/shift + LeakyReLU + pool, and their gradients), with
-    the running statistics moved by flax's momentum rule. The JAX package
-    takes its train kernels only where its TPU layout rules hold
-    (``stage_supported_train``); the port has none and takes them at every
-    shape, so where JAX would run its native ops the two differ only in
-    rounding points. ``I2PNET_FUSED_TRAIN=0`` (read at call time, as JAX
-    reads it) takes the native chain in bf16 training too. The native chain
-    (f32 always): conv, BN with batch or running statistics, LeakyReLU,
-    ``max_pool_3x3``; with ``bn_compute_dtype`` the BN result is in the
-    compute dtype.
+    the running statistics moved by flax's momentum rule. As in the JAX
+    package, a stage takes them only where every block fits the kernels
+    (``conv_cuda.stage_supported``, ``conv_train_cuda.stage_supported_train``:
+    the port's own limits, e.g. cout a multiple of 8), and runs the native
+    chain elsewhere; the gate decides the route on every device, so a CPU
+    run takes the same route as the card. Where only one package's gate
+    holds, the two differ in rounding points. ``I2PNET_FUSED_TRAIN=0``
+    (read at call time, as JAX reads it) takes the native chain in bf16
+    training too. The native chain (f32 always): conv, BN with batch or
+    running statistics, LeakyReLU, ``max_pool_3x3``; with
+    ``bn_compute_dtype`` the BN result is in the compute dtype.
     """
 
     def __init__(self, cin: int, channels: Sequence[int], strides: Sequence[int],
                  dtype: Optional[torch.dtype] = None, bn_compute_dtype: bool = False):
         super().__init__()
-        self.strides = tuple(strides)
+        self.channels, self.strides = tuple(channels), tuple(strides)
         self.dtype = dtype
         self.bn_compute_dtype = bn_compute_dtype
         self.blocks = []
@@ -296,9 +298,14 @@ class RGBEncoderStage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.bfloat16:
+            B, H, W, cin = x.shape
             if not self.training:
-                return self._fused_eval(x)
-            if os.environ.get("I2PNET_FUSED_TRAIN") != "0":
+                if conv_cuda.stage_supported(H, W, cin, self.channels, self.strides):
+                    return self._fused_eval(x)
+            elif os.environ.get("I2PNET_FUSED_TRAIN") != "0" and \
+                    conv_train_cuda.stage_supported_train(
+                        H, W, cin, self.channels, self.strides,
+                        input_grad=x.requires_grad and torch.is_grad_enabled()):
                 return self._fused_train(x)
         bn_dt = self.dtype if self.bn_compute_dtype else None
         for (conv, bn), s in zip(self.blocks, self.strides):

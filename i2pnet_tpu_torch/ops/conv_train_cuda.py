@@ -45,10 +45,11 @@ plain version for CPU tensors. The autograd functions look the dispatchers
 up when they run, so a wrapper replaced on the module sees the backward's
 calls too.
 
-The JAX package takes these kernels only where its TPU layout rules hold
-(``stage_supported_train``) and native ops elsewhere; the port has no such
-rules and takes them at every bf16 train shape. Where JAX would fall back,
-the two differ only in rounding points.
+``stage_supported_train`` states where these kernels take a whole stage,
+the port's counterpart of the JAX package's gate of the same name, with
+the port's own limits; ``RGBEncoderStage`` runs the native chain
+elsewhere. Where only one package's gate holds, the two differ only in
+rounding points.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -306,6 +307,41 @@ def dw_chunks(plan: DwPlan, H: int, W: int):
             c % plan.rowchunks
         yield (b, (rc * plan.rows, min(H, (rc + 1) * plan.rows)),
                (s * plan.sw, min(W, (s + 1) * plan.sw)))
+
+
+_CONV_SMEM_MAX = 232448  # shared memory a block of kernel (a) may take
+
+
+def _conv_smem(cin: int, cout: int) -> int:
+    """Kernel (a)'s shared memory for one call (``conv_smem`` in the source:
+    the channel tile's weights and the 18x18 input tile, channels padded
+    to 16)."""
+    co_t = 32 if cout % 32 == 0 else 16 if cout % 16 == 0 else 8
+    cinp = -(-cin // 16) * 16
+    weights = -(-co_t * (9 * cinp + 8) * 2 // 16) * 16
+    return weights + 18 * 18 * (cinp + 8) * 2
+
+
+def stage_supported_train(H: int, W: int, cin: int, channels: Sequence[int],
+                          strides: Sequence[int], input_grad: bool = False) -> bool:
+    """True if the train kernels take every block of the stage: stride 1
+    or 2; cout a multiple of 8 (kernel (a)'s forward and bn_pool's C);
+    kernel (a)'s shared memory within a block's for the forward and, where
+    the block's input takes a gradient (every block after the first, and
+    the first with ``input_grad``), for dx, whose output channels (cin)
+    must then be a multiple of 8 too; and dw's tiles within its counter
+    buffer. The port's counterpart of the JAX package's
+    ``stage_supported_train``, with the port's own limits."""
+    for j, (cout, s) in enumerate(zip(channels, strides)):
+        if s not in (1, 2) or cout % 8 or cout < 8 or _conv_smem(cin, cout) > _CONV_SMEM_MAX:
+            return False
+        if (j > 0 or input_grad) and (cin % 8 or _conv_smem(cout, cin) > _CONV_SMEM_MAX):
+            return False
+        p = _dw_plan(1, H, W, cin, cout)
+        if p.citiles * p.cotiles > _DW_COUNTERS:
+            return False
+        H, W, cin = (H - 1) // s + 1, (W - 1) // s + 1, cout
+    return True
 
 
 _dw_counters = {}

@@ -8,7 +8,9 @@ critical path. The kernel keeps each thread's contiguous run of points and
 their running distances in registers for the whole loop, takes each warp's
 argmax as one ``redux.sync`` on the distances' bits plus a ballot (no
 shuffle chain), and pays one barrier per step. See the source note in
-``csrc/fps.cu`` for the design and the variants measured slower.
+``csrc/fps.cu`` for the design and the variants measured slower. Clouds
+past the registers' reach (more than 16384 points, or 32 a thread) take a
+second, simple kernel with no size limit.
 
 Both versions give bit-identical indices: start at index 0, squared
 distance as ``(dx*dx + dy*dy) + dz*dz`` with no fused multiply-add, argmax
@@ -27,7 +29,9 @@ from i2pnet_tpu_torch.ops import _build
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
 
-MAX_POINTS = 16384  # the cloud's shared-memory copy: 12 * N bytes <= 227 KB
+# past this many points fps_any_kernel keeps its running distances in a
+# scratch the wrapper allocates (csrc/fps.cu kAnySmemPoints)
+SCRATCH_POINTS = 49152
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -54,25 +58,29 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fps")
     v, i = ctypes.c_void_p, ctypes.c_int
-    lib.fps_launch.argtypes = [v, i, i, i, v, i, v]
+    lib.fps_launch.argtypes = [v, i, i, i, v, i, v, v]
     lib.fps_launch.restype = i
     return lib
 
 
 def fps_cuda(xyz: torch.Tensor, npoint: int, threads: int = 0) -> torch.Tensor:
-    """Launch ``csrc/fps.cu`` on a CUDA tensor (B, N, 3) f32. ``threads``
-    per batch row (a multiple of 32, at most 1024, N <= 32 * threads); 0
-    takes the launcher's choice for N."""
+    """Launch ``csrc/fps.cu`` on a CUDA tensor (B, N, 3) f32, any N.
+    ``threads`` per batch row (a multiple of 32, at most 1024); 0 takes the
+    launcher's choice for N. Up to 16384 points and 32 a thread the
+    register kernel runs; any other cloud the any-N kernel."""
     global launches
     _build.require_cuda(xyz, torch.float32, "fps")
     B, N, C = xyz.shape
-    if C != 3 or not 0 < N <= MAX_POINTS or not 0 < npoint <= N:
+    if C != 3 or N < 1 or not 0 < npoint <= N:
         raise ValueError(f"fps: unsupported shape {tuple(xyz.shape)} -> {npoint}")
-    if threads and (threads % 32 or not 32 <= threads <= 1024 or N > 32 * threads):
-        raise ValueError(f"fps: unsupported thread count {threads} for {N} points")
+    if threads and (threads % 32 or not 32 <= threads <= 1024):
+        raise ValueError(f"fps: unsupported thread count {threads}")
     lib = _lib()
     out = torch.empty(B, npoint, dtype=torch.int64, device=xyz.device)
+    scratch = (torch.empty(B, N, dtype=torch.float32, device=xyz.device)
+               if N > SCRATCH_POINTS else None)
     code = lib.fps_launch(_build.ptr(xyz), B, N, npoint, _build.ptr(out), threads,
+                          None if scratch is None else _build.ptr(scratch),
                           _build.stream_of(xyz))
     _build.check(lib, code, "fps_launch")
     launches += 1

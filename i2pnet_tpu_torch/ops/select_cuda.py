@@ -9,11 +9,12 @@ m (B, out_h*out_w, kh*kw + 1) f32, slot kh*kw the sentinel, each row
 summing to K. The dense eval route (``ops/dense_window.py``) weights its
 BatchNorm statistics and masks its max with m, so no K-gather runs.
 
-On the H100 the work is tiny (at most 256 slots and K argmin passes per
+On the H100 the work is tiny (a few hundred slots and K argmin passes per
 query) and bound by the bytes of m; the kernel gives each query one warp,
-the slots' distances sit in the lanes' registers, each pass is a warp
-shuffle argmin, and the lanes write the m row together (see the source
-note in ``csrc/select.cu``).
+the slots' distances sit in the lanes' registers (in shared memory for
+windows of more than 255 slots), each pass is a warp shuffle argmin, and
+the lanes write the m row together (see the source note in
+``csrc/select.cu``).
 
 Both versions give the same m exactly: the distance is ``(dx*dx + dy*dy) +
 dz*dz`` with no fused multiply-add, the radius squared is rounded to f32,
@@ -35,7 +36,10 @@ from i2pnet_tpu_torch.ops.projection import window_neighbor_select_grid
 # kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
 
-MAX_SLOTS = 255  # kh*kw + 1 <= 256: eight registers of slots per lane
+# kh*kw + 1 <= 256 keeps the slots in eight registers a lane; larger
+# windows, up to a warp's row of kh*kw floats in a block's shared memory,
+# take the shared-memory kernel
+MAX_SLOTS = (232448 - 128) // 4
 
 
 def selection_multiplicity(args: torch.Tensor, khw: int) -> torch.Tensor:

@@ -48,6 +48,27 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint):
 FPS_LEVELS = [(8, 8192, 2048), (8, 2048, 1024), (8, 1024, 256), (8, 256, 64)]
 
 
+# past the register kernel's reach: more than 16384 points (distances in
+# shared memory, then, past 49152, in the wrapper's scratch) and more than
+# 32 points a thread at a named thread count (B, N, npoint, threads)
+FPS_ANY_CASES = [(2, 20000, 1024, 0), (2, 40000, 1024, 0), (1, 60000, 256, 0),
+                 (2, 8192, 512, 128), (1, 17000, 300, 256)]
+
+
+@pytest.mark.parametrize("B,N,npoint,threads", FPS_ANY_CASES)
+def test_fps_any_size_matches_plain(dev, B, N, npoint, threads):
+    """The any-N kernel on quantised clouds (many equal distances): the
+    plain loop's indices exactly, one launch a call."""
+    rng = np.random.default_rng(N + threads)
+    xyz = np.round(rng.normal(size=(B, N, 3)) * 4) / 4
+    xyz = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+    before = fps_cuda.launches
+    got = fps_cuda.fps_cuda(xyz, npoint, threads)
+    torch.cuda.synchronize()
+    assert fps_cuda.launches == before + 1
+    assert torch.equal(got, fps_cuda.fps_plain(xyz, npoint))
+
+
 @pytest.mark.parametrize("threads", [0, 256, 512, 1024])
 @pytest.mark.parametrize("B,N,npoint", FPS_LEVELS)
 def test_fps_kernel_matches_plain_on_tied_levels(dev, B, N, npoint, threads):
@@ -91,6 +112,76 @@ def test_conv_block_kernel_matches_plain(dev, B, H, W, cin, cout, stride):
     assert float((got - ref).abs().max()) <= 0.01 * max(float(ref.abs().max()), 1.0)
 
 
+# the block's edges: the raw-row path (cin 3, 5) and the NHWC one (8; 12,
+# whose rows are not 16-byte aligned), cout 8 to 128 (128: two channel
+# tiles), sizes that fill no slab, strip or ring evenly, several slabs, a
+# 1-row and a 1-column image, both strides
+CONV_EDGE_CASES = [
+    (2, 9, 37, 3, 8, 1),
+    (2, 9, 37, 3, 24, 2),
+    (1, 1, 50, 3, 16, 2),
+    (1, 1, 50, 8, 16, 1),
+    (2, 11, 300, 8, 16, 1),
+    (2, 11, 300, 8, 16, 2),
+    (1, 13, 29, 12, 24, 1),
+    (1, 13, 29, 12, 16, 2),
+    (1, 10, 130, 5, 32, 2),
+    (2, 7, 1, 16, 8, 1),
+    (2, 7, 1, 16, 8, 2),
+    (1, 6, 83, 64, 128, 1),
+    (1, 6, 83, 64, 128, 2),
+    (2, 25, 81, 32, 64, 1),
+    (1, 17, 260, 16, 16, 2),
+    (2, 40, 130, 3, 16, 2),
+]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout,stride", CONV_EDGE_CASES)
+def test_conv_block_kernel_edges(dev, B, H, W, cin, cout, stride):
+    """Within one bf16 ulp of the magnitude of the plain version, one
+    launch a call, every output written (the output starts as NaN)."""
+    rng = np.random.default_rng(cin * cout + H * W)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, cin)).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(0.3 * rng.normal(size=(3, 3, cin, cout)).astype(np.float32)).to(dev, torch.bfloat16)
+    scale = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+    shift = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+    # a freed NaN block for the output to reuse: an unwritten output shows
+    torch.full((B * H * W * cout,), float("nan"), device=dev)
+    before = conv_cuda.launches
+    got = conv_cuda.conv_block_cuda(x, w, scale, shift, stride).float()
+    torch.cuda.synchronize()
+    assert conv_cuda.launches == before + 1
+    ref = conv_cuda.conv_block_plain(x, w, scale, shift, stride).float()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 0.01 * max(float(ref.abs().max()), 1.0)
+
+
+def test_stage_off_the_kernels_runs_the_native_chain(dev):
+    """cout = 12 fails the gates: the bf16 stage runs the native chain on
+    the card, at eval and in training, with no kernel launched, and agrees
+    with the same stage on the CPU."""
+    from i2pnet_tpu_torch.nn.layers import RGBEncoderStage
+
+    torch.manual_seed(0)
+    stage = RGBEncoderStage(3, (12, 16), (2, 1), torch.bfloat16)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 24, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref = stage.eval()(x)
+    stage = stage.to(dev)
+    counts = (conv_cuda.launches, dict(conv_train_cuda.launches))
+    with torch.no_grad():
+        got = stage.eval()(x.to(dev))
+    out = stage.train()(x.to(dev))
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (conv_cuda.launches, dict(conv_train_cuda.launches)) == counts
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all())
+    # the same bf16 chain on both devices; sums in another order
+    assert float((got.float().cpu() - ref.float()).abs().max()) <= \
+        0.02 * max(float(ref.float().abs().max()), 1.0)
+
+
 def _cv1_operands(dev, B, N, K, C, H1, H2, H3, E, G1, seed=0):
     rng = np.random.default_rng(seed)
 
@@ -108,7 +199,12 @@ def _cv1_operands(dev, B, N, K, C, H1, H2, H3, E, G1, seed=0):
 
 @pytest.mark.parametrize(
     "B,N,K,C,H1,H2,H3,E,G1",
-    [(2, 8, 40, 32, 32, 16, 16, 16, 32), (1, 5, 480, 128, 128, 64, 64, 64, 128), (2, 3, 7, 16, 16, 16, 16, 16, 16)],
+    [(2, 8, 40, 32, 32, 16, 16, 16, 32), (1, 5, 480, 128, 128, 64, 64, 64, 128), (2, 3, 7, 16, 16, 16, 16, 16, 16),
+     # K not a multiple of the 64-pixel tile, N = 1, the narrowest widths,
+     # odd query counts over the block's two warpgroups, mixed widths
+     (2, 7, 100, 128, 128, 64, 64, 64, 128), (1, 1, 480, 128, 128, 64, 64, 64, 128),
+     (3, 1, 64, 16, 16, 16, 16, 16, 16), (1, 33, 130, 48, 80, 32, 48, 16, 112),
+     (2, 300, 65, 128, 128, 64, 64, 64, 128)],
 )
 def test_cv1_kernel_matches_plain(dev, B, N, K, C, H1, H2, H3, E, G1):
     ops = _cv1_operands(dev, B, N, K, C, H1, H2, H3, E, G1)
@@ -124,14 +220,15 @@ def test_cv1_kernel_matches_plain(dev, B, N, K, C, H1, H2, H3, E, G1):
 def test_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError):
         fps_cuda.fps_cuda(torch.zeros(1, 8, 3, device=dev, dtype=torch.float64), 4)
-    with pytest.raises(ValueError):
-        fps_cuda.fps_cuda(torch.zeros(1, fps_cuda.MAX_POINTS + 1, 3, device=dev), 4)
-    with pytest.raises(ValueError):  # 8192 points need at least 256 threads
-        fps_cuda.fps_cuda(torch.zeros(1, 8192, 3, device=dev), 4, 128)
+    with pytest.raises(ValueError):  # 100 threads: not a multiple of 32
+        fps_cuda.fps_cuda(torch.zeros(1, 8192, 3, device=dev), 4, 100)
     x = torch.zeros(1, 8, 8, 4, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # stride 3
         conv_cuda.conv_block_cuda(x, torch.zeros(3, 3, 4, 8, device=dev, dtype=torch.bfloat16),
                                   torch.ones(8, device=dev), torch.zeros(8, device=dev), 3)
+    with pytest.raises(ValueError):  # 12 output channels: not a multiple of 8
+        conv_cuda.conv_block_cuda(x, torch.zeros(3, 3, 4, 12, device=dev, dtype=torch.bfloat16),
+                                  torch.ones(12, device=dev), torch.zeros(12, device=dev), 1)
     ops = list(_cv1_operands(dev, 1, 2, 8, 24, 16, 16, 16, 16, 16))
     with pytest.raises(ValueError):  # C = 24 is not a multiple of 16
         cv_cuda.cv1_cuda(*ops)
@@ -390,6 +487,10 @@ SELECT_CASES = [
     (2, (8, 16), (4, 8), (2, 2), (3, 3), 16, 1.5),  # K > khw: sentinel / copy fill
     (2, (64, 1800), (16, 225), (4, 8), (9, 15), 32, 0.75),
     (1, (64, 1800), (16, 225), (4, 8), (9, 15), 32, 60.0),
+    # more than 255 slots: the shared-memory path (289 slots and the sentinel)
+    (2, (40, 64), (10, 16), (4, 4), (17, 17), 32, 1.5),
+    (1, (64, 1800), (16, 225), (4, 8), (17, 17), 64, 0.75),
+    (1, (24, 40), (6, 10), (4, 4), (21, 33), 300, 60.0),
 ]
 
 
@@ -421,8 +522,8 @@ def test_select_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):  # four channels
         select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 4, device=dev), 4, 4, (2, 2),
                                                 (3, 3), 4, 1.0)
-    with pytest.raises(ValueError):  # 17 x 17 slots: more than 255
+    with pytest.raises(ValueError):  # 250 x 250 slots: more than a block's shared memory holds
         select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 3, device=dev), 4, 4, (2, 2),
-                                                (17, 17), 4, 1.0)
+                                                (250, 250), 4, 1.0)
     with pytest.raises(ValueError):  # a CPU tensor
         select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 3), 4, 4, (2, 2), (3, 3), 4, 1.0)

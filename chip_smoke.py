@@ -36,7 +36,11 @@ each raising on failure:
 7. time the train step (median of 3 windows of 20 steps) and each train
    kernel's launches of one step by graph replay, beside its plain version
    and a PyTorch library call for the same function where one exists; dw
-   also per call shape, beside ``conv2d_weight`` and its bound;
+   also per call shape, beside ``conv2d_weight`` and its bound; every
+   conv fwd and dx call alone beside ``F.conv2d`` / ``conv2d_input`` on the
+   same operands and its bound, every bn_pool bwd call beside its bound and
+   ``max_pool2d_with_indices_backward`` on the same routing (a yardstick,
+   not the same function);
 8. proj eval: run the forward; check out3/out4 (finite, unit quaternions,
    a second forward identical) and the launches in one forward (select 5,
    encoder block 15, FPS 0, cv1 0);
@@ -52,7 +56,9 @@ each raising on failure:
    14, dw 15, bn_pool fwd 15, bwd 15, every other kernel 0), a finite loss,
    that every parameter, sx, sq and RGB BatchNorm statistic moved, and that
    a second run from the same seeds repeats the first step bit for bit
-   (loss, every gradient, every parameter); time the step as in 7;
+   (loss, every gradient, every parameter); every train kernel call of the
+   step against its plain version (bars as in 6); time the step as in 7,
+   and conv fwd, dx and bn_pool bwd per proj step and call by call as in 7;
 12. ``I2PNET_POOL_BWD=pallas``: one proj step (no-tap bn_pool fwd 15,
    recompute bwd 15, the idx pair 0), every call of those two kernels equal
    to its plain version, and ``fused_stage_train`` at the shapes of the
@@ -317,14 +323,16 @@ def library_calls(name, calls):
     import torch
     import torch.nn.functional as F
 
-    if name == "conv_fwd":  # F.conv2d in bf16, channels_last, with bias
+    if name == "conv_fwd":  # F.conv2d in bf16, channels_last, with bias; lib(k): call k
         ops = [(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b.to(torch.bfloat16))
                for (x, w, b), _ in calls]
-        return lambda: [F.conv2d(x, w, b, padding=1) for x, w, b in ops]
+        return lambda k=None: [F.conv2d(x, w, b, padding=1)
+                               for x, w, b in (ops if k is None else ops[k:k + 1])]
     if name == "conv_dx":  # the input gradient of the forward conv
         ops = [(g.permute(0, 3, 1, 2), wt.flip(1, 2).permute(3, 0, 1, 2)) for (g, wt), _ in calls]
-        return lambda: [torch.nn.grad.conv2d_input(
-            (g.shape[0], w.shape[1], g.shape[2], g.shape[3]), w, g, padding=1) for g, w in ops]
+        return lambda k=None: [torch.nn.grad.conv2d_input(
+            (g.shape[0], w.shape[1], g.shape[2], g.shape[3]), w, g, padding=1)
+            for g, w in (ops if k is None else ops[k:k + 1])]
     if name == "conv_dw":  # the weight gradient; lib(k) runs call k alone
         ops = [(x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)) for (x, g), _ in calls]
 
@@ -339,14 +347,15 @@ def library_calls(name, calls):
     return None  # FPS, the fused blocks, cv1, bn_pool: no single PyTorch call
 
 
-def route_as_max_pool_indices(argtap, ct, stride):
+def route_as_max_pool_indices(argtap, ct, stride, W=None):
     """The operands of ``max_pool2d_with_indices_backward`` for a route call:
     the cotangent and a stand-in input as channels-last NCHW views, and the
-    flat first-max index h * W + w of every cell, from its tap."""
+    flat first-max index h * W + w of every cell, from its tap (W: the
+    input's width, stride * Wo where not given)."""
     import torch
 
     B, Ho, Wo, C = ct.shape
-    W = stride * Wo
+    W = stride * Wo if W is None else W
     tap = argtap.long()
     oh = torch.arange(Ho, device=ct.device)[None, :, None, None]
     ow = torch.arange(Wo, device=ct.device)[None, None, :, None]
@@ -447,6 +456,50 @@ def dw_shapes(calls, card) -> None:
               f"conv2d_weight {l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
 
 
+def train_call_shapes(name, calls, card, label: str):
+    """Each call of kernel (a) (conv_fwd, conv_dx) or (d) (bn_pool_bwd) of
+    one train step by graph replay, beside its library call -- ``F.conv2d``
+    or ``conv2d_input`` on the same operands -- or, for bn_pool_bwd,
+    ``max_pool2d_with_indices_backward`` on the same routing (a yardstick of
+    the routing's share, not the same function), and the call's bound.
+    Returns the rows, kept in the kernels' JSON line."""
+    import torch
+
+    from i2pnet_tpu_torch.ops import conv_train_cuda as ct
+
+    fn = getattr(ct, f"{name}_cuda")
+    if name == "bn_pool_bwd":  # a = (y, sc, sh, taps, g, stride)
+        ops = []
+        for a, _ in calls:
+            g, _, idx, st = route_as_max_pool_indices(a[3], a[4], a[5], W=a[0].shape[2])
+            ops.append((g, torch.empty_like(a[0]).permute(0, 3, 1, 2), idx, st))
+
+        def lib(k):
+            g, x, idx, st = ops[k]
+            return torch.ops.aten.max_pool2d_with_indices_backward(
+                g, x, [3, 3], [st, st], [1, 1], [1, 1], False, idx)
+    else:
+        lib = library_calls(name, calls)
+    rows, total = [], [0.0, 0.0, 0.0]
+    for k, (a, out) in enumerate(calls):
+        ms = replay_ms(lambda: fn(*a))
+        l_ms = replay_ms(lambda: lib(k))
+        b_ms, _ = BOUNDS[name](a, out)
+        shape = list(a[0].shape) + ([a[1].shape[0]] if name != "bn_pool_bwd" else [a[5]])
+        # bn_pool_bwd's yardstick is not the same function: its own key
+        lib_key = "routing_yardstick_ms" if name == "bn_pool_bwd" else "library_ms"
+        rows.append({"shape": shape, "ms": ms, lib_key: l_ms, "bound_ms": b_ms})
+        for i, v in enumerate((ms, l_ms, b_ms)):
+            total[i] += v
+        lib_name = {"conv_fwd": "F.conv2d", "conv_dx": "conv2d_input"}.get(
+            name, "max_pool2d_with_indices_backward (routing yardstick)")
+        print(f"{name} {label} call {k} {tuple(shape)}: kernel {ms:.4f} ms, {lib_name} "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
+    print(f"{name} {label}: {len(calls)} calls one by one {total[0]:.4f} ms, library "
+          f"{total[1]:.4f} ms, bound {total[2]:.4f} ms on {card}")
+    return rows
+
+
 def block_shapes(calls, card, label: str) -> None:
     """Each encoder-block call of one forward by graph replay, beside
     ``F.conv2d`` (bf16, channels_last) on its conv alone -- a yardstick of
@@ -537,6 +590,10 @@ def train_kernel_error(name, fn, plain, calls) -> float:
         worst = max(worst, err)
     return worst
 
+
+# the kernels whose every call of a step is timed alone (and kept in the
+# JSON line), in the free and the proj step
+PER_CALL = ("conv_fwd", "conv_dx", "bn_pool_bwd")
 
 EXACT = ("bn_pool_bwd", "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1",
          "pool_route_s2")
@@ -840,6 +897,10 @@ def main() -> int:
             rows.append(kernel_row(k, train_launches[k["name"]], errors[k["name"]],
                                    captures[k["name"]].calls, card))
         dw_shapes(captures["conv_dw"].calls, card)
+        for row in rows:
+            if row["name"] in PER_CALL:
+                row["per_call_free_step"] = train_call_shapes(
+                    row["name"], captures[row["name"]].calls, card, "free step")
     if "--profile" in sys.argv[1:]:
         profile_run(train_step, card, "train_step")
 
@@ -923,7 +984,19 @@ def main() -> int:
     ptmodel, pstate, pstep, pgen = proj_train_setup()
     params0 = {n: p.detach().clone() for n, p in ptmodel.named_parameters()}
     buffers0 = {n: b.clone() for n, b in ptmodel.named_buffers()}
-    pmetrics = launches_of("proj_train", PROJ_TRAIN_LAUNCHES, lambda: pstep(pstate, pbatch, pgen))
+    captures = {k["name"]: Capture(ct, k["fn"]) for k in train_kernels}
+    with (captures["conv_fwd"], captures["conv_dx"], captures["conv_dw"], captures["bn_pool_fwd"],
+          captures["bn_pool_bwd"]):
+        pmetrics = launches_of("proj_train", PROJ_TRAIN_LAUNCHES,
+                               lambda: pstep(pstate, pbatch, pgen))
+    proj_errors = {}
+    with torch.no_grad():
+        for k in train_kernels:
+            name = k["name"]
+            proj_errors[name] = train_kernel_error(name, getattr(ct, k["fn"]),
+                                                   getattr(ct, k["plain"]), captures[name].calls)
+            print(f"{name}: {len(captures[name].calls)} calls of the proj step match the plain "
+                  f"version, max abs err {proj_errors[name]:.3e}")
     ploss1 = pmetrics["loss"].clone()
     check(bool(torch.isfinite(ploss1)), f"proj first-step loss {float(ploss1)}")
     print(f"proj first step: loss {float(ploss1):.6f}, loss_q {float(pmetrics['loss_q']):.6f}, "
@@ -969,6 +1042,25 @@ def main() -> int:
     print(f"proj train step: {pstep_ms:.3f} ms/step, {BATCH * 1000.0 / pstep_ms:.2f} pairs/s "
           f"(B={BATCH}, median of {WINDOWS}x{ITERS}, spread {spread:.1f}%, "
           f"{len(plosses) + 1} steps, every loss finite) on {card}")
+    with torch.no_grad():
+        # kernel (a) and (d) per proj step (graph replay), beside the library
+        # call and the bound, and each call alone
+        for row in rows:
+            name = row["name"]
+            if name not in PER_CALL:
+                continue
+            calls = captures[name].calls
+            fn = getattr(ct, f"{name}_cuda")
+            lib = library_calls(name, calls)
+            row["proj_step"] = {
+                "launches": path_launches["proj_train"][name], "max_abs_err": proj_errors[name],
+                "ms": replay_ms(lambda: [fn(*a) for a, _ in calls]),
+                "library_ms": replay_ms(lib) if lib is not None else None,
+                "bound_ms": total_bound(name, calls)[0],
+            }
+            print(f"{name} proj step: {json.dumps(row['proj_step'])} on {card}")
+            row["per_call_proj_step"] = train_call_shapes(name, calls, card, "proj step")
+    del captures
     if "--profile" in sys.argv[1:]:
         profile_run(proj_train_step, card, "proj_train_step")
 

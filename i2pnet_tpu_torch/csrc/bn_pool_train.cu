@@ -25,17 +25,41 @@
 // The TPU's lane rolls, row pairing and even-w selection matmuls are not
 // carried over.
 //
-// What bounds them on the H100: bytes (a few operations per element). Each
-// thread owns 8 channels of one output (c) or input (d) pixel, so every
-// access is a 16-byte vector (8 bf16, 8 taps as 8 bytes, 8 f32 as two);
-// neighbouring threads take neighbouring channel groups and pixels. The
-// overlapping windows' re-reads hit the caches. (d) gathers, for each input
-// pixel, the <= 9 (stride 1) or <= 4 (stride 2) pooled cells that cover it,
-// so it needs no atomics and sums in a fixed order. (f) reads y once per
-// tile with its halo (12x12 staged for 8x8 pixels) and recomputes each
-// cell's 9-tap scan from shared memory: about 9 compares per pooled cell
-// and channel, still below the bytes.
+// What bounds them on the H100: bytes (a few operations per element). In
+// (c), (e) and (f) each thread owns 8 channels of one output (c, e) or
+// input (f) pixel, so every access is a 16-byte vector (8 bf16, 8 taps as
+// 8 bytes, 8 f32 as two); neighbouring threads take neighbouring channel
+// groups and pixels, and the overlapping windows' re-reads hit the caches.
+// (f) reads y once per tile with its halo (12x12 staged for 8x8 pixels)
+// and recomputes each cell's 9-tap scan from shared memory: about 9
+// compares per pooled cell and channel, still below the bytes.
 //
+// (d): a block owns a tile of input pixels of one batch row (16 x 64/CG at
+// stride 1, 32 x 128/CG at stride 2) and CG 8-channel groups (the most,
+// up to 8, that divide C / 8), 256 threads.
+// - It stages once, by 16- and 8-byte cp.async, the cotangents and taps of
+//   the pooled cells that cover the tile (with their 1-cell halo), zeros
+//   outside the pooled grid: a zero adds +0, which leaves every sum as it
+//   is, so no lookup tests the grid. It loads sc and sh once a thread
+//   (every item of a thread has the same channel group) and the first
+//   pass's y while the cells land.
+// - Indices are 32-bit, from blockIdx and threadIdx, divisions by powers
+//   of two. At stride 2 the tile runs in 4 parity passes, (row, column)
+//   parity resolved at compile time, so a pixel visits only its 1, 2 or 4
+//   candidate cells; at stride 1 all 9. The sum runs k = 0..8 ascending, as
+//   the plain version's, so dz stays bit-identical.
+// - A thread writes its 8 f32 as two float4, neighbouring lanes on
+//   neighbouring 32-byte runs of a pixel's channels.
+// What bounds it, as measured (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/torch_kernel_times.py): the first call (stride 2, 384x1280, 16
+// channels, 425 MB) runs at ~2 TB/s, ~60% of the card's rate; the 24x80
+// and 48x160 calls are latency-bound (a launch, one round trip to device
+// memory, a few microseconds). Tried and slower: lanes 2k and 2k + 1
+// swapping halves so that each float4 store writes whole 32-byte sectors
+// (0.682 ms per free step against 0.59); in scratch builds timed together,
+// 4 blocks a SM (64 registers: spills) and 128-thread blocks, while 8-row
+// passes and streaming cache hints (__stcs, __ldcs) were no faster.
+
 // The affine is spelled with __fmul_rn / __fadd_rn: nvcc would contract it
 // into an FMA, and the plain PyTorch version rounds twice. Out and taps are
 // then bit-identical to the plain version, and so is dz.
@@ -112,52 +136,146 @@ __global__ void bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y,
   }
 }
 
-__global__ void bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y,
-                                   const float* __restrict__ sc, const float* __restrict__ sh,
-                                   const uint8_t* __restrict__ taps,
-                                   const __nv_bfloat16* __restrict__ g, float* __restrict__ dz,
-                                   Shape s) {
-  const int C8 = s.C / 8;
-  const long long total = static_cast<long long>(s.B) * s.H * s.W * C8;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % C8) * 8;
-    long long rest = i / C8;
-    const int w = static_cast<int>(rest % s.W);
-    rest /= s.W;
-    const int h = static_cast<int>(rest % s.H);
-    const int b = static_cast<int>(rest / s.H);
-    float acc[8] = {};
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      // the pooled cell whose tap k is this pixel: oh * stride + kh - 1 == h
-      const int hn = h + 1 - k / 3, wn = w + 1 - k % 3;
-      if (hn < 0 || wn < 0 || hn % s.stride || wn % s.stride) continue;
-      const int oh = hn / s.stride, ow = wn / s.stride;
-      if (oh >= s.Ho || ow >= s.Wo) continue;
-      const size_t at = ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + c;
-      const uint2 tv = *reinterpret_cast<const uint2*>(taps + at);
-      const uint4 gv = *reinterpret_cast<const uint4*>(g + at);
-      const uint8_t* tp = reinterpret_cast<const uint8_t*>(&tv);
-      const __nv_bfloat16* gp = reinterpret_cast<const __nv_bfloat16*>(&gv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (tp[j] == k) acc[j] += __bfloat162float(gp[j]);
-    }
-    float scv[8], shv[8];
-    load_affine(sc, sh, c, scv, shv);
-    const size_t at = ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c;
-    const uint4 raw = *reinterpret_cast<const uint4*>(y + at);
-    const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    __align__(16) float o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j] = affine(__bfloat162float(yv[j]), scv[j], shv[j]) >= 0.f ? acc[j]
-                                                                     : __fmul_rn(acc[j], 0.1f);
-    float4* dst = reinterpret_cast<float4*>(dz + at);
-    dst[0] = *reinterpret_cast<const float4*>(o);
-    dst[1] = *reinterpret_cast<const float4*>(o + 4);
+// (d): one block per tile of input pixels of one batch row -- TH x TW, in
+// S x S parity passes of kPassRows x kPassCols pixels -- and CG 8-channel
+// groups. kPass (pixel, group) items a pass, 4 a thread.
+constexpr int kBwdThreads = 256;
+constexpr int kPass = 1024;
+constexpr int kPassRows = 16;
+
+template <int S, int CG>
+struct BwdTile {
+  static constexpr int kPassCols = kPass / (kPassRows * CG);  // 64 / CG
+  static constexpr int TH = S * kPassRows, TW = S * kPassCols;
+  // the pooled cells that cover the tile: with a 1-cell halo on each side
+  // at stride 1; at stride 2 (TH, TW even) one more row and column
+  static constexpr int NR = S == 1 ? TH + 2 : kPassRows + 1;
+  static constexpr int NC = S == 1 ? TW + 2 : kPassCols + 1;
+  static constexpr int kCells = NR * NC;
+};
+
+template <int S, int CG>
+__global__ void __launch_bounds__(kBwdThreads)
+bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ sc,
+                   const float* __restrict__ sh, const uint8_t* __restrict__ taps,
+                   const __nv_bfloat16* __restrict__ g, float* __restrict__ dz, Shape s) {
+  using T = BwdTile<S, CG>;
+  __shared__ __align__(16) __nv_bfloat16 g_s[T::kCells * CG * 8];
+  __shared__ __align__(16) uint8_t t_s[T::kCells * CG * 8];
+  const int chunks = s.C / (8 * CG);
+  const int b = blockIdx.z / chunks, c8 = blockIdx.z % chunks * CG;
+  const int h0 = blockIdx.y * T::TH, w0 = blockIdx.x * T::TW;
+  const int oh0 = S == 1 ? h0 - 1 : h0 / 2, ow0 = S == 1 ? w0 - 1 : w0 / 2;
+
+  // the cells' cotangents (16 bytes a group) and taps (8), zeros outside
+  // the pooled grid: a zero cotangent adds +0, which leaves every sum as it
+  // is (a sum from +0 is never -0), so no lookup below tests the grid
+  const __nv_bfloat16* gb = g + static_cast<size_t>(b) * s.Ho * s.Wo * s.C + c8 * 8;
+  const uint8_t* tb = taps + static_cast<size_t>(b) * s.Ho * s.Wo * s.C + c8 * 8;
+  for (int i = threadIdx.x; i < T::kCells * CG; i += kBwdThreads) {
+    const int gi = i % CG, cell = i / CG;
+    const int oh = oh0 + cell / T::NC, ow = ow0 + cell % T::NC;
+    const bool ok = oh >= 0 && oh < s.Ho && ow >= 0 && ow < s.Wo;
+    const long long at = ok ? (static_cast<long long>(oh) * s.Wo + ow) * s.C + gi * 8 : 0;
+    cp_async16(g_s + i * 8, gb + at, ok ? 16 : 0);
+    cp_async8(t_s + i * 8, tb + at, ok ? 8 : 0);
   }
+  cp_async_commit();
+
+  // every item of a thread has the same channel group (kBwdThreads % CG == 0)
+  const int gi = threadIdx.x % CG, c = (c8 + gi) * 8;
+  float scv[8], shv[8];
+  load_affine(sc, sh, c, scv, shv);
+
+  // pass (py, px) takes the pixels (h0 + S i + py, w0 + S j + px): at
+  // stride 2 the taps whose cells can route to them are known here, 1, 2
+  // or 4 of the 9, in ascending order. A pass's y vectors are loaded before
+  // its cells are read (the first pass's while the cells land).
+  constexpr int kItems = kPass / kBwdThreads;
+  uint4 raw[kItems];
+  auto load_y = [&](int py, int px) {
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int it = threadIdx.x + u * kBwdThreads;
+      const int j = it / CG % T::kPassCols, i = it / (CG * T::kPassCols);
+      const int h = h0 + S * i + py, w = w0 + S * j + px;
+      if (h < s.H && w < s.W)
+        raw[u] = *reinterpret_cast<const uint4*>(
+            y + ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c);
+    }
+  };
+  load_y(0, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int py = 0; py < S; ++py)
+#pragma unroll
+    for (int px = 0; px < S; ++px) {
+      if (py + px > 0) load_y(py, px);
+#pragma unroll
+      for (int u = 0; u < kItems; ++u) {
+        const int it = threadIdx.x + u * kBwdThreads;
+        const int j = it / CG % T::kPassCols, i = it / (CG * T::kPassCols);
+        const int h = h0 + S * i + py, w = w0 + S * j + px;
+        if (h >= s.H || w >= s.W) continue;
+        float acc[8] = {};
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          if ((py + 1 - kh) % S != 0) continue;
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw) {
+            if ((px + 1 - kw) % S != 0) continue;
+            // the cell (oh, ow) with oh * S + kh - 1 == h, in staged coordinates
+            const int cr = S == 1 ? i + 2 - kh : i + (py + 1 - kh) / 2;
+            const int cc = S == 1 ? j + 2 - kw : j + (px + 1 - kw) / 2;
+            const int e = ((cr * T::NC + cc) * CG + gi) * 8;
+            const uint2 tv = *reinterpret_cast<const uint2*>(t_s + e);
+            const uint4 gv = *reinterpret_cast<const uint4*>(g_s + e);
+            const uint8_t* tp = reinterpret_cast<const uint8_t*>(&tv);
+            const __nv_bfloat16* gp = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              if (tp[q] == kh * 3 + kw) acc[q] += __bfloat162float(gp[q]);
+          }
+        }
+        const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw[u]);
+        __align__(16) float o[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          o[q] = affine(__bfloat162float(yv[q]), scv[q], shv[q]) >= 0.f ? acc[q]
+                                                                         : __fmul_rn(acc[q], 0.1f);
+        float4* dst = reinterpret_cast<float4*>(
+            dz + ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c);
+        dst[0] = *reinterpret_cast<const float4*>(o);
+        dst[1] = *reinterpret_cast<const float4*>(o + 4);
+      }
+    }
+}
+
+template <int S, int CG>
+cudaError_t launch_bn_pool_bwd(const void* y, const void* sc, const void* sh, const void* taps,
+                               const void* g, void* dz, const Shape& s, cudaStream_t stream) {
+  using T = BwdTile<S, CG>;
+  const long long z = static_cast<long long>(s.B) * (s.C / (8 * CG));
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((s.W + T::TW - 1) / T::TW, (s.H + T::TH - 1) / T::TH, static_cast<unsigned>(z));
+  bn_pool_bwd_kernel<S, CG><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
+      static_cast<const float*>(sh), static_cast<const uint8_t*>(taps),
+      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dz), s);
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_bn_pool_bwd_s(const void* y, const void* sc, const void* sh, const void* taps,
+                                 const void* g, void* dz, const Shape& s, cudaStream_t stream) {
+  // CG: the most 8-channel groups, up to 8, that divide C / 8
+  const int C8 = s.C / 8;
+  if (C8 % 8 == 0) return launch_bn_pool_bwd<S, 8>(y, sc, sh, taps, g, dz, s, stream);
+  if (C8 % 4 == 0) return launch_bn_pool_bwd<S, 4>(y, sc, sh, taps, g, dz, s, stream);
+  if (C8 % 2 == 0) return launch_bn_pool_bwd<S, 2>(y, sc, sh, taps, g, dz, s, stream);
+  return launch_bn_pool_bwd<S, 1>(y, sc, sh, taps, g, dz, s, stream);
 }
 
 // (f): one block per 8x8 tile of input pixels, one batch row and up to
@@ -321,12 +439,9 @@ extern "C" int bn_pool_bwd_launch(const void* y, const void* sc, const void* sh,
                                   int C, int stride, void* stream) {
   const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
   if (!valid(s)) return cudaErrorInvalidValue;
-  bn_pool_bwd_kernel<<<grid_for(static_cast<long long>(B) * H * W * (C / 8)), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(sh), static_cast<const uint8_t*>(taps),
-      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dz), s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return stride == 1 ? launch_bn_pool_bwd_s<1>(y, sc, sh, taps, g, dz, s, st)
+                     : launch_bn_pool_bwd_s<2>(y, sc, sh, taps, g, dz, s, st);
 }
 
 // (f): dz (B,H,W,C) f32 from y, sc, sh and g (B,Ho,Wo,C) bf16, as

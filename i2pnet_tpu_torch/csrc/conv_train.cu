@@ -15,18 +15,54 @@
 // What bounds them on the H100: bytes. At the main path's shapes (B = 8,
 // 384x1280 down to 24x80, 3..128 channels) a forward moves ~0.5 GB for
 // ~43 GFLOP, about 90 FLOP a byte, under the card's ~295. The design
-// therefore reads each input tile once per block and writes each output
-// once, and keeps the arithmetic on bf16 tensor cores (mma.sync.m16n8k16,
-// f32 accumulate) so that it stays off the critical path.
+// therefore reads each input row once per channel tile and writes each
+// output once, and keeps the arithmetic on bf16 tensor cores
+// (mma.sync.m16n8k16, f32 accumulate), whose rate is not the limit, so
+// wgmma would not move it.
 //
-// (a): one block per (batch row, 16x16 output tile, co_t output channels).
-// The block stages the 18x18 input tile (zero outside the image, channels
-// zero-padded to a multiple of 16, so cin = 3 takes the same path) and the
-// co_t weight rows in shared memory, as conv_block.cu does; it is that
-// kernel's implicit GEMM without the pool. Each warp owns two output rows
-// of 16 pixels (m16 tiles); the epilogue adds the bias in f32 and rounds to
-// bf16, as the TPU kernel rounds its output.
-//
+// (a): a block owns a strip of output rows of one batch row, in a column
+// slab of at most 128 output pixels, and a tile of output channels -- all
+// of cout up to 64 where its weights fit, so each input row is read once.
+// - The input rows stream through a ring of shared-memory slots filled by
+//   16-byte cp.async (zero-filled outside the image), NHWC with a pitch of
+//   8 extra channels; A and B fragments come by ldmatrix, a tap's column
+//   shift being a row address per lane. The weights arrive by cp.async
+//   with the first rows.
+// - An iteration computes 4 output rows from the 6 input rows that cover
+//   them, behind one barrier. A warp item is two output rows x two m16
+//   tiles x two n8 tiles: each input row's A fragment (per kw) feeds both
+//   output rows, each B fragment both tiles and, kept a row, both output
+//   rows -- 8 independent mma.sync chains an item.
+// - cin <= 5 (the image): the raw rows are copied as runs of 16-byte words
+//   and each iteration expands the next iteration's 4 rows to 4 channels a
+//   pixel (8 for cin = 5), so a kh row's 9 (kw, channel) pairs are one k16
+//   step: 3 steps where the earlier kernel ran 9 on channels padded to 16.
+// - The epilogue adds the bias in f32 (__fadd_rn) and rounds to bf16 once,
+//   into the item's own part of 4 staged output rows; the warp then writes
+//   that part as 16-byte vectors, consecutive lanes on consecutive vectors
+//   -- no barrier, since no other warp reads it.
+// - The launch plan (conv_plan, mirrored in ops/conv_train_cuda.py) takes
+//   the widest channel tile that fits, the widest slab that lets 3 blocks
+//   share a SM (at most 85 registers a thread), else 2, else 1, halves the
+//   channel tile where a small image would leave SMs empty, and cuts the
+//   rows into strips that fill one wave. conv3x3_launch_plan runs any
+//   other plan, for timing and for the card tests.
+// What bounds it, as measured (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/torch_kernel_times.py): not device memory -- the 3 -> 16 call at
+// 384x1280 moves 150 MB in ~0.13 ms, about 1.1 TB/s -- but each
+// iteration's chain of copies issued, fragment loads, mma chains and
+// stores, overlapped only by the 2-3 blocks a SM holds: builds with one of
+// those parts removed (a scratch ablation, each timed alone) each ran
+// faster, none by half, the mma chains and their fragment loads the most.
+// Tried and slower or no faster: 1-3 iterations of rows in flight
+// (the same times: the copies are in before they are needed); a plan that
+// preferred 8 items an iteration over a wide channel tile (the 32 -> 16 dx
+// call at 192x640 read its input twice and took 0.153 ms against 0.088);
+// a barrier after each iteration's staged rows, with all threads storing
+// them (slower by about a tenth on the free step); 2 blocks a SM at up to
+// 128 registers a thread, or 4 at 64 (scratch builds, timed over the free
+// step's calls together: both slower, by a fifth or more).
+
 // (b): dW = sum over pixels of X_window^T . dY, an implicit GEMM with M =
 // (tap, input channel), N = output channels, K = pixels. It moves ~522 MB
 // for ~43 GFLOP per free train step (~82 FLOP a byte): bytes bound it, so
@@ -82,115 +118,472 @@ constexpr int kWarps = 8;
 
 // ---- (a) the 3x3 conv ----------------------------------------------------
 
-constexpr int kTile = 16;          // output tile: kTile x kTile pixels
-constexpr int kHalo = kTile + 2;   // input tile with the conv's halo
+using bf16 = __nv_bfloat16;
+constexpr int kConvRows = 4;  // output rows an iteration computes
+// input rows issued before the first iteration: the 6 it reads (NHWC); on
+// the raw path also the next iteration's 4, which each iteration expands
+// for the next one
+__host__ __device__ constexpr int conv_ahead(bool raw) { return raw ? 10 : 6; }
+// input-row ring slots: those, and 4 for the rows issued as an iteration starts
+__host__ __device__ constexpr int conv_stages(bool raw) { return conv_ahead(raw) + kConvRows; }
+constexpr int kConvRawCin = 5;                       // cin up to this takes the raw-row path
+constexpr int kConvExpSlots = 10;  // raw path: expanded rows, the 6 in use and the next 4
+constexpr int kConvThreads = kWarps * 32;
 
-struct ConvSmem {  // byte offsets; cinp = cin rounded up to 16
-  size_t w, in, total;
-  int cinp, ps, ws;  // padded channels; pixel stride and weight-row stride (bf16)
+struct ConvArgs {
+  const bf16* x;
+  const bf16* w;
+  const float* bias;  // null: no bias (dx)
+  bf16* y;
+  int B, H, W, cin, cout;
+  int co_t, mt;         // channel tile; m16 tiles of a slab row (16 mt output pixels)
+  int sw, slabs;        // output columns a slab; slabs a row
+  int rows, rowchunks;  // output rows a strip; strips an image
 };
 
-__host__ __device__ inline ConvSmem conv_smem(int cin, int co_t) {
-  ConvSmem s;
-  s.cinp = (cin + 15) / 16 * 16;
-  s.ps = s.cinp + 8;
-  s.ws = 9 * s.cinp + 8;
-  s.w = 0;
-  s.in = (sizeof(__nv_bfloat16) * co_t * s.ws + 15) / 16 * 16;
-  s.total = s.in + sizeof(__nv_bfloat16) * kHalo * kHalo * s.ps;
-  return s;
+// Shared-memory layout (bytes, 16-aligned sections), mirrored by
+// ops/conv_train_cuda.py _conv_smem.
+struct ConvLayout {
+  int c4, kh16;    // raw path: channels of an expanded pixel (4, 8); K of a kh row
+  int eslot;       // raw path: elements of an expanded row
+  int kp, wpitch;  // K padded to k16 steps; weight-row pitch (bf16)
+  int xpitch;      // NHWC: pixel pitch of an input row (bf16)
+  int xslot;       // elements of an input slot
+  int spitch;      // pixel pitch of a staged output row (bf16)
+  size_t w, in, ex, st, bs, total;
+};
+
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__host__ __device__ inline ConvLayout conv_layout(int cin, int co_t, int mt) {
+  ConvLayout L;
+  const bool raw = cin <= kConvRawCin;
+  const int cw = 16 * mt, cinp = round_up(cin, 16);
+  L.c4 = cin <= 4 ? 4 : 8;
+  L.kh16 = round_up(3 * L.c4, 16);
+  L.eslot = raw ? (cw + L.kh16 / L.c4 + 1) * L.c4 : 0;
+  L.kp = raw ? 3 * L.kh16 : 9 * cinp;
+  L.wpitch = L.kp + 8;
+  L.xpitch = cinp + 8;
+  // raw: the row's elements from a 16-byte word at most 7 before the first
+  // needed one, in whole words
+  L.xslot = raw ? round_up((cw + 2) * cin + 14, 8) : (cw + 2) * L.xpitch;
+  L.spitch = co_t + 8;
+  size_t o = 0;
+  L.w = o;
+  o += round_up(round_up(co_t, 16) * L.wpitch * 2, 16);  // rows padded to 16 for ldmatrix.x4
+  L.in = o;
+  o += static_cast<size_t>(conv_stages(raw)) * L.xslot * 2;
+  L.ex = o;
+  o += static_cast<size_t>(raw ? kConvExpSlots : 0) * L.eslot * 2;
+  L.st = o;
+  o += static_cast<size_t>(kConvRows) * cw * L.spitch * 2;
+  L.bs = o;
+  o += co_t * sizeof(float);
+  L.total = o;
+  return L;
 }
 
-template <int NT>  // output channels per block: co_t = 8 * NT
-__global__ void __launch_bounds__(kWarps * 32)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W,
-               int cin, int cout) {
-  constexpr int co_t = 8 * NT;
-  const ConvSmem S = conv_smem(cin, co_t);
-  const int nchunk = cout / co_t;
-  const int b = blockIdx.z / nchunk;
-  const int co0 = (blockIdx.z % nchunk) * co_t;
-  const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;  // first output pixel
+// Block (batch row, slab, strip, channel tile), RAW for cin <= 5; KC
+// 16-channel chunks of the input (NHWC path; 0: as many as cin takes, a
+// loop), or on the raw path the channels of an expanded pixel (4 or 8).
+//
+// An iteration computes kConvRows = 4 output rows from the 6 input rows
+// that cover them. A warp item is two output rows x two m16 tiles (32
+// pixels) x two n8 tiles (16 channels): each of the item's 4 input rows is
+// loaded once per kw (NHWC; once on the raw path) and feeds both output
+// rows -- row q0 at kh = jj, row q0 + 1 at kh = jj - 1 --, and each B
+// fragment feeds both tiles and, kept for the next input row, both output
+// rows: 8 independent accumulator chains an item.
+template <bool RAW, int KC>
+__global__ void __launch_bounds__(kConvThreads, 3) conv3x3_kernel(const ConvArgs a) {
+  constexpr int kConvAhead = conv_ahead(RAW), kConvStages = conv_stages(RAW);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ConvLayout L = conv_layout(a.cin, a.co_t, a.mt);
+  bf16* w_s = reinterpret_cast<bf16*>(smem + L.w);
+  bf16* in_s = reinterpret_cast<bf16*>(smem + L.in);
+  bf16* ex_s = reinterpret_cast<bf16*>(smem + L.ex);
+  bf16* st_s = reinterpret_cast<bf16*>(smem + L.st);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bs);
+  __shared__ int raw_at[conv_stages(true)];  // raw path: pixel p of a slot's row at raw_at + p * cin
+
+  const int cotiles = a.cout / a.co_t;
+  int idx = blockIdx.x;
+  const int ct = idx % cotiles;
+  idx /= cotiles;
+  const int rc = idx % a.rowchunks;
+  idx /= a.rowchunks;
+  const int sl = idx % a.slabs;
+  const int b = idx / a.slabs;
+  const int co0 = ct * a.co_t;
+  const int c0 = sl * a.sw;  // the column of the slab's output pixel 0
+  const int sw_n = min(a.sw, a.W - c0);
+  const int r_begin = rc * a.rows, r_end = min(a.H, r_begin + a.rows);
+  if (sw_n <= 0 || r_begin >= r_end) return;  // uniform over the block
+  const int nrows = r_end - r_begin;
+  const int cw = 16 * a.mt;
+  const int cin = a.cin, cinp = round_up(cin, 16);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem + S.w);    // [co_t][9][cinp]
-  __nv_bfloat16* in_s = reinterpret_cast<__nv_bfloat16*>(smem + S.in);  // [kHalo][kHalo][cinp]
-
-  const int groups = S.cinp / 8;
   const bool vec = cin % 8 == 0;
-  for (int i = threadIdx.x; i < co_t * 9 * groups; i += blockDim.x) {
-    const int grp = i % groups, row = i / groups;  // row = co * 9 + tap
-    const __nv_bfloat16* src = w + (static_cast<size_t>(co0) * 9 + row) * cin + grp * 8;
-    *reinterpret_cast<uint4*>(w_s + (row / 9) * S.ws + (row % 9) * S.cinp + grp * 8) =
-        load8(src, vec, cin - grp * 8);
-  }
-  for (int i = threadIdx.x; i < kHalo * kHalo * groups; i += blockDim.x) {
-    const int grp = i % groups, p = i / groups;
-    const int gr = r0 - 1 + p / kHalo, gc = c0 - 1 + p % kHalo;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gr >= 0 && gr < H && gc >= 0 && gc < W)
-      v = load8(x + ((static_cast<size_t>(b) * H + gr) * W + gc) * cin + grp * 8, vec,
-                cin - grp * 8);
-    *reinterpret_cast<uint4*>(in_s + p * S.ps + grp * 8) = v;
-  }
-  __syncthreads();
+  const long long rowlen = static_cast<long long>(a.W) * cin;  // x elements a row
 
-  // warp w computes output rows w and w + 8 of the tile; an m16 tile is one
-  // row of 16 pixels, lane rows g and g + 8 its pixels g and g + 8
-  for (int m = warp; m < kTile; m += kWarps) {
-    float acc[NT][4] = {};
-    for (int tap = 0; tap < 9; ++tap) {
-      const int kh = tap / 3, kw = tap % 3;
-      for (int k0 = 0; k0 < S.cinp; k0 += 16) {
-        uint32_t a[4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const __nv_bfloat16* ip = in_s + ((m + kh) * kHalo + g + 8 * r + kw) * S.ps + k0 + 2 * t;
-          a[r] = *reinterpret_cast<const uint32_t*>(ip);
-          a[2 + r] = *reinterpret_cast<const uint32_t*>(ip + 8);
+  // the tile's weights, [co][k] (k = tap * cinp + ci, or the raw path's
+  // kh * kh16 + kw * c4 + ci), zeros past cin, past 3 c4 and past co_t; by
+  // cp.async where the rows are 16-byte aligned (committed with the first
+  // input row), so a block's first loads are all in flight together
+  const int co_rows = round_up(a.co_t, 16);
+  for (int i = threadIdx.x; i < co_rows * (L.kp / 8); i += kConvThreads) {
+    const int co = i / (L.kp / 8), k8 = i % (L.kp / 8) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (!RAW && vec) {
+      const int tap = k8 / cinp, ci = k8 % cinp;
+      const bool ok = co < a.co_t && ci < cin;
+      cp_async16(w_s + co * L.wpitch + k8,
+                 ok ? a.w + (static_cast<size_t>(co0 + co) * 9 + tap) * cin + ci : a.w, ok ? 16 : 0);
+      continue;
+    }
+    if (co < a.co_t) {
+      if constexpr (RAW) {
+        __align__(16) bf16 e[8];
+        for (int j = 0; j < 8; ++j) {
+          const int kh = (k8 + j) / L.kh16, kk = (k8 + j) % L.kh16;
+          const int kw = kk / L.c4, ci = kk % L.c4;
+          e[j] = kw < 3 && ci < cin
+                     ? a.w[(static_cast<size_t>(co0 + co) * 9 + kh * 3 + kw) * cin + ci]
+                     : __float2bfloat16_rn(0.f);
         }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* wp = w_s + (nt * 8 + g) * S.ws + tap * S.cinp + k0 + 2 * t;
-          mma_bf16(acc[nt], a, *reinterpret_cast<const uint32_t*>(wp),
-                   *reinterpret_cast<const uint32_t*>(wp + 8));
-        }
+        v = *reinterpret_cast<const uint4*>(e);
+      } else {
+        const int tap = k8 / cinp, ci = k8 % cinp;
+        v = load8(a.w + (static_cast<size_t>(co0 + co) * 9 + tap) * cin + ci, vec, cin - ci);
       }
     }
-    const int gr = r0 + m;
-    if (gr >= H) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int co = co0 + nt * 8 + 2 * t;
-      const float b0 = bias ? bias[co] : 0.f, b1 = bias ? bias[co + 1] : 0.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {  // pixel g, then pixel g + 8
-        const int gc = c0 + g + 8 * e;
-        if (gc >= W) continue;
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(__fadd_rn(acc[nt][2 * e], b0), __fadd_rn(acc[nt][2 * e + 1], b1));
-        *reinterpret_cast<__nv_bfloat162*>(y + ((static_cast<size_t>(b) * H + gr) * W + gc) * cout +
-                                           co) = v;
+    *reinterpret_cast<uint4*>(w_s + co * L.wpitch + k8) = v;
+  }
+  for (int i = threadIdx.x; i < a.co_t; i += kConvThreads)
+    bias_s[i] = a.bias ? a.bias[co0 + i] : 0.f;
+
+  // group j: input row r_begin - 1 + j into slot j % kConvStages (while j <
+  // nrows + 2); every thread commits every group, even empty
+  auto issue = [&](int j) {
+    if (j < nrows + 2) {
+      bf16* xs = in_s + (j % kConvStages) * L.xslot;
+      const int xr = r_begin - 1 + j;
+      if (xr >= 0 && xr < a.H) {
+        const long long rowbase = (static_cast<long long>(b) * a.H + xr) * rowlen;
+        if constexpr (RAW) {
+          const int pf = max(c0 - 1, 0), pl = min(c0 + cw + 1, a.W);
+          const long long start = (rowbase + static_cast<long long>(pf) * cin) / 8 * 8;
+          const long long end = rowbase + static_cast<long long>(pl) * cin;
+          if (threadIdx.x == 0)
+            raw_at[j % kConvStages] =
+                (j % kConvStages) * L.xslot + static_cast<int>(rowbase - start);
+          const int n = static_cast<int>((end - start + 7) / 8);
+          for (int k = threadIdx.x; k < n; k += kConvThreads) {
+            const long long e = start + 8LL * k;
+            cp_async16(xs + 8 * k, a.x + e, static_cast<int>(min(8LL, end - e)) * 2);
+          }
+        } else {
+          const int q8 = KC > 0 ? 2 * KC : cinp / 8;
+          for (int i = threadIdx.x; i < (cw + 2) * q8; i += kConvThreads) {
+            const int p = i / q8, ch = i % q8 * 8, gc = c0 - 1 + p;
+            const bool ok = gc >= 0 && gc < a.W && ch < cin;
+            const bf16* src = ok ? a.x + rowbase + static_cast<long long>(gc) * cin + ch : a.x;
+            bf16* dst = xs + p * L.xpitch + ch;
+            if (vec) {
+              cp_async16(dst, src, ok ? 16 : 0);
+            } else {  // rows not 16-byte aligned: scalar loads
+              *reinterpret_cast<uint4*>(dst) = ok ? load8(src, false, cin - ch)
+                                                  : make_uint4(0u, 0u, 0u, 0u);
+            }
+          }
+        }
+      } else if (!RAW) {  // a row outside the image reads as zeros (raw: masked)
+        for (int i = threadIdx.x; i < L.xslot / 8; i += kConvThreads)
+          reinterpret_cast<uint4*>(xs)[i] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
+    cp_async_commit();
+  };
+
+  // raw path: group j's row, expanded to c4 channels a pixel (zeros past
+  // cin and outside the image), pixel p = input column c0 - 1 + p
+  auto expand = [&](int j) {
+    bf16* e = ex_s + (j % kConvExpSlots) * L.eslot;
+    const int xr = r_begin - 1 + j;
+    const bool row_ok = xr >= 0 && xr < a.H;
+    const uint16_t* r16 = reinterpret_cast<const uint16_t*>(in_s) + raw_at[j % kConvStages];
+    for (int p = threadIdx.x; p < L.eslot / L.c4; p += kConvThreads) {
+      const int gc = c0 - 1 + p;  // past the copied columns (read by zero weights): zeros
+      const bool ok = row_ok && gc >= 0 && gc < a.W && gc <= c0 + cw;
+      uint16_t v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = ok && c < cin ? r16[gc * cin + c] : 0;
+      uint32_t* d = reinterpret_cast<uint32_t*>(e + p * L.c4);
+#pragma unroll
+      for (int c = 0; c < 8; c += 2)
+        if (c < L.c4) d[c / 2] = v[c] | static_cast<uint32_t>(v[c + 1]) << 16;
+    }
+  };
+
+  const int NT = a.co_t / 8;         // n8 tiles of the channel tile
+  const int ngroups = (NT + 1) / 2;  // an item's two n8 tiles
+  const int mp = (a.mt + 1) / 2;     // pairs of m16 tiles
+  const int items = (kConvRows / 2) * mp * ngroups;
+  const int kcs = KC > 0 ? KC : cinp / 16;
+  // ldmatrix row addresses: A (pixel, channel) and B (n, k) within a k16 step
+  const int a_px = (lane & 7) + 8 * ((lane >> 3) & 1), a_ch = 8 * (lane >> 4);
+  const int b_n = (lane & 7) + 8 * (lane >> 4), b_k = 8 * ((lane >> 3) & 1);
+  for (int j = 0; j < kConvAhead; ++j) issue(j);
+  if constexpr (RAW) {  // the first iteration's 6 rows, expanded
+    cp_async_wait<kConvAhead - 6>();
+    __syncthreads();
+    for (int j = 0; j < min(6, nrows + 2); ++j) expand(j);
+  }
+  for (int i0 = 0; i0 < nrows; i0 += kConvRows) {  // output rows r_begin + i0 ..
+    // every group issued has landed (NHWC: the iteration's rows; raw: also
+    // the next iteration's) and, after the barrier, every thread's; the
+    // last iteration's reads of the slots refilled now are done
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < kConvRows; ++k) issue(i0 + kConvAhead + k);
+    if constexpr (RAW)  // the next iteration's new rows (read after its barrier)
+      for (int j = i0 + 6; j < min(i0 + 10, nrows + 2); ++j) expand(j);
+
+    for (int item = warp; item < items; item += kWarps) {
+      const int pi = item % mp, rp = item / mp % (kConvRows / 2);
+      const int nt0 = item / (mp * (kConvRows / 2)) * 2;
+      const int q0 = 2 * rp;  // the item's output rows: i0 + q0, i0 + q0 + 1
+      if (i0 + q0 >= nrows) continue;      // uniform over the warp
+      const bool two = 2 * pi + 1 < a.mt;  // the pair's second tile
+      const bool hi = nt0 + 1 < NT;        // the item's second n8 tile
+      float acc[2][2][2][4] = {};          // [output row][m16 tile][n8 tile]
+      // acc[q][tile] += A_tile @ B for the item's n8 tiles (bq: both, ldmatrix.x4)
+      auto mma2 = [&](int q, const uint32_t (&a0)[4], const uint32_t (&a1)[4],
+                      const uint32_t (&bq)[4]) {
+        mma_bf16(acc[q][0][0], a0, bq[0], bq[1]);
+        if (hi) mma_bf16(acc[q][0][1], a0, bq[2], bq[3]);
+        if (two) {
+          mma_bf16(acc[q][1][0], a1, bq[0], bq[1]);
+          if (hi) mma_bf16(acc[q][1][1], a1, bq[2], bq[3]);
+        }
+      };
+      const bf16* wrow = w_s + (nt0 * 8 + b_n) * L.wpitch + b_k;
+      if constexpr (RAW) {
+        // A[m][k] of an input row at k = kw * c4 + ci is the expanded row's
+        // element (m + kw) * c4 + ci = m * c4 + k: 32-bit words, k even
+        // (past 3 c4 the weights are zero)
+        auto raw_frag = [&](uint32_t (&af)[4], const bf16* e, int mi, int kq) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              af[rr + 2 * h] = *reinterpret_cast<const uint32_t*>(
+                  e + (mi * 16 + g + 8 * rr) * KC + 16 * kq + 2 * t + 8 * h);
+        };
+        constexpr int kKq = (3 * KC + 15) / 16;
+#pragma unroll
+        for (int kq = 0; kq < kKq; ++kq) {
+          uint32_t bprev[4] = {};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const bf16* e = ex_s + ((i0 + q0 + jj) % kConvExpSlots) * L.eslot;
+            uint32_t a0[4], a1[4] = {}, bcur[4] = {};
+            raw_frag(a0, e, 2 * pi, kq);
+            if (two) raw_frag(a1, e, 2 * pi + 1, kq);
+            if (jj < 3) {
+              ldmatrix_x4(bcur, wrow + jj * (kKq * 16) + 16 * kq);
+              mma2(0, a0, a1, bcur);
+            }
+            if (jj > 0) mma2(1, a0, a1, bprev);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) bprev[r] = bcur[r];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < (KC > 0 ? KC : 1); ++cc) {
+          for (int c2 = 0; c2 < (KC > 0 ? 1 : kcs); ++c2) {
+            const int ch = 16 * (cc + c2);
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw) {
+              uint32_t bprev[4] = {};
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const bf16* xs = in_s + ((i0 + q0 + jj) % kConvStages) * L.xslot +
+                                 (32 * pi + a_px + kw) * L.xpitch + a_ch + ch;
+                uint32_t a0[4], a1[4] = {}, bcur[4] = {};
+                ldmatrix_x4(a0, xs);
+                if (two) ldmatrix_x4(a1, xs + 16 * L.xpitch);
+                if (jj < 3) {
+                  ldmatrix_x4(bcur, wrow + (jj * 3 + kw) * cinp + ch);
+                  mma2(0, a0, a1, bcur);
+                }
+                if (jj > 0) mma2(1, a0, a1, bprev);
+#pragma unroll
+                for (int r = 0; r < 4; ++r) bprev[r] = bcur[r];
+              }
+            }
+          }
+        }
+      }
+      // epilogue: the bias added in f32, one rounding to bf16, into the
+      // item's own part of the staged rows; then the warp writes that part
+      // as 16-byte vectors, consecutive lanes on consecutive vectors (no
+      // barrier: no other warp reads it, and the warp's next item writes
+      // after these reads)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        bf16* srow = st_s + (q0 + q) * cw * L.spitch;
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt) {
+          if (tt == 1 && !two) break;
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn) {
+            if (jn == 1 && !hi) break;
+            const int co = (nt0 + jn) * 8 + 2 * t;
+            const float b0 = bias_s[co], b1 = bias_s[co + 1];
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int m = (2 * pi + tt) * 16 + g + 8 * rr;
+              *reinterpret_cast<uint32_t*>(srow + m * L.spitch + co) =
+                  pack_bf16(__fadd_rn(acc[q][tt][jn][2 * rr], b0),
+                            __fadd_rn(acc[q][tt][jn][2 * rr + 1], b1));
+            }
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // (row, pixel, 8-channel half) of the item
+        const int v = lane + 32 * k;
+        const int q = v >> 6, m = 32 * pi + ((v >> 1) & 31), half = v & 1;
+        if (i0 + q0 + q >= nrows || m >= sw_n || (half && !hi)) continue;
+        const int co = nt0 * 8 + 8 * half;
+        const uint4 val =
+            *reinterpret_cast<const uint4*>(st_s + ((q0 + q) * cw + m) * L.spitch + co);
+        *reinterpret_cast<uint4*>(
+            a.y + ((static_cast<long long>(b) * a.H + r_begin + i0 + q0 + q) * a.W + c0 + m) *
+                      a.cout + co0 + co) = val;
+      }
+      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+using ConvKern = void (*)(const ConvArgs);
+
+// the kernel instance: the raw path by the channels of an expanded pixel;
+// the NHWC path unrolled over cin's 16-channel chunks where it can be
+ConvKern pick_conv(int cin) {
+  if (cin <= kConvRawCin) return cin <= 4 ? conv3x3_kernel<true, 4> : conv3x3_kernel<true, 8>;
+  switch ((cin + 15) / 16) {
+    case 1: return conv3x3_kernel<false, 1>;
+    case 2: return conv3x3_kernel<false, 2>;
+    case 4: return conv3x3_kernel<false, 4>;
+    default: return conv3x3_kernel<false, 0>;
   }
 }
 
-template <int NT>
-cudaError_t launch_conv3x3(const void* x, const void* w, const void* bias, void* y, int B, int H,
-                           int W, int cin, int cout, cudaStream_t stream) {
-  const size_t smem = conv_smem(cin, 8 * NT).total;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+constexpr int kSmPerSm = 233472;        // shared memory of a SM (228 KB)
+constexpr int kBlockReserve = 1024 + 128;  // per block: the runtime's 1 KB and raw_at
+constexpr int kMaxConvSmem = 232448 - 128;  // dynamic shared memory a block may take
+constexpr int kConvStartRows = 12;  // a block's start (weights, first 6 rows), in rows of work
+
+// Kernel (a)'s launch plan, a function of the shape and the SM count,
+// mirrored by ops/conv_train_cuda.py _conv_plan (chosen from the times of
+// the encoder's calls on other plans, tools/torch_kernel_times.py sweep):
+// - the widest channel tile (a multiple of 8 dividing cout, <= 64) whose
+//   layout fits a block at all: each input row is then read the fewest
+//   times;
+// - the widest slab (at most 128 output pixels, 16 mt) whose layout lets 3
+//   blocks share a SM, if it is at least 4 m16 tiles wide; else the widest
+//   that lets 2 share one; else the widest that fits;
+// - where even one block per strip of 4 rows would leave SMs empty, the
+//   channel tile halved (small images);
+// - the output rows cut into strips, multiples of the 4 rows an iteration
+//   computes, for one wave of the blocks the SMs hold, or two where that
+//   spreads the rows more evenly (the 3 -> 16 call at 384x1280: 320 blocks
+//   for 396 places left some SMs 3 blocks and others 2).
+struct ConvPlan {
+  int co_t, mt, sw, slabs, rows, rowchunks;
+};
+
+// the widest slab of W output columns (mt <= mt_cap) whose layout fits budget
+bool conv_slab(int W, int cin, int co_t, int budget, ConvPlan& p) {
+  for (int mt_cap = 8; mt_cap >= 1; --mt_cap) {
+    const int slabs = (W + 16 * mt_cap - 1) / (16 * mt_cap);
+    const int sw = (W + slabs - 1) / slabs, mt = (sw + 15) / 16;
+    if (conv_layout(cin, co_t, mt).total <= static_cast<size_t>(budget)) {
+      p = ConvPlan{co_t, mt, sw, slabs, 0, 0};
+      return true;
+    }
+  }
+  return false;
+}
+
+bool conv_plan(int B, int H, int W, int cin, int cout, int sms, ConvPlan& p) {
+  if (cout % 8 != 0 || cin <= 0 || B <= 0 || H <= 0 || W <= 0 || sms <= 0) return false;
+  int co_t = 0;
+  for (int d = (cout < 64 ? cout : 64) / 8 * 8; d >= 8 && co_t == 0; d -= 8)
+    if (cout % d == 0 && conv_layout(cin, d, 1).total <= static_cast<size_t>(kMaxConvSmem)) co_t = d;
+  if (co_t == 0) return false;
+  if (!(conv_slab(W, cin, co_t, kSmPerSm / 3 - kBlockReserve, p) && p.mt >= 4) &&
+      !conv_slab(W, cin, co_t, kSmPerSm / 2 - kBlockReserve, p))
+    conv_slab(W, cin, co_t, kMaxConvSmem, p);
+  const int maxrc = (H + kConvRows - 1) / kConvRows;
+  while (static_cast<long long>(B) * p.slabs * (cout / p.co_t) * maxrc < sms && p.co_t % 16 == 0)
+    p.co_t /= 2;
+  // strips for one wave of the blocks the SMs hold, or for two where that
+  // spreads the rows more evenly: the fewer (blocks a SM) x (rows + a
+  // block's start, worth about 12 rows), ties to one wave
+  const long long strips = static_cast<long long>(B) * p.slabs * (cout / p.co_t);
+  const int smem = static_cast<int>(conv_layout(cin, p.co_t, p.mt).total);
+  const int per_sm = kSmPerSm / (smem + kBlockReserve) < 3 ? kSmPerSm / (smem + kBlockReserve) : 3;
+  const long long fill = static_cast<long long>(per_sm) * sms / strips;
+  const int rc1 = fill < 1 ? 1 : fill < maxrc ? static_cast<int>(fill) : maxrc;
+  long long best = -1;
+  for (int waves = 1; waves <= 2; ++waves) {
+    const int rc = rc1 * waves < maxrc ? rc1 * waves : maxrc;
+    const int rows = round_up((H + rc - 1) / rc, kConvRows);
+    const long long blocks = strips * ((H + rows - 1) / rows);
+    const long long cost = (blocks + sms - 1) / sms * (rows + kConvStartRows);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.rows = rows;
+    }
+  }
+  p.rowchunks = (H + p.rows - 1) / p.rows;
+  return strips * p.rowchunks <= 0x7fffffffLL;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+cudaError_t launch_conv3x3(const ConvArgs& a, cudaStream_t stream) {
+  const size_t smem = conv_layout(a.cin, a.co_t, a.mt).total;
+  if (smem > static_cast<size_t>(kMaxConvSmem)) return cudaErrorInvalidValue;
+  const ConvKern kern = pick_conv(a.cin);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B * (cout / (8 * NT)));
-  conv3x3_kernel<NT><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), H, W, cin, cout);
+  // all of the SM's unified memory as shared memory, so that as many blocks
+  // as fit stay resident
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>(a.B) * a.slabs * a.rowchunks * (a.cout / a.co_t);
+  kern<<<static_cast<int>(blocks), kConvThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -553,17 +946,45 @@ cudaError_t launch_conv_dw_co(const DwArgs& a, int citiles, int cotiles, cudaStr
 }  // namespace
 
 // y (B,H,W,cout) bf16 = conv3x3(x (B,H,W,cin) bf16, w (cout,3,3,cin) bf16)
-// + bias (cout,) f32, or no bias when bias is null. Requires cout % 8 == 0
-// (checked by the wrapper too).
+// + bias (cout,) f32, or no bias when bias is null, on the launch plan of
+// conv_plan for this card's SM count. Requires cout % 8 == 0 and x, w
+// 16-byte aligned (checked by the wrapper too).
 extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, void* y, int B,
                               int H, int W, int cin, int cout, void* stream) {
-  if (cout % 8 != 0 || cin <= 0) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout % 32 == 0) return launch_conv3x3<4>(x, w, bias, y, B, H, W, cin, cout, s);
-  if (cout % 16 == 0) return launch_conv3x3<2>(x, w, bias, y, B, H, W, cin, cout, s);
-  return launch_conv3x3<1>(x, w, bias, y, B, H, W, cin, cout, s);
+  ConvPlan p;
+  if (!conv_plan(B, H, W, cin, cout, sm_count(), p)) return cudaErrorInvalidValue;
+  const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<const float*>(bias), static_cast<bf16*>(y), B, H, W, cin, cout,
+                   p.co_t, p.mt, p.sw, p.slabs, p.rows, p.rowchunks};
+  return launch_conv3x3(a, static_cast<cudaStream_t>(stream));
 }
 
+// conv3x3_launch on a given plan (co_t a multiple of 8 dividing cout, <= 64;
+// 1 <= mt <= 8; sw <= 16 mt; slabs * sw >= W; rows * rowchunks >= H; the
+// layout within a block's shared memory): for timing other plans.
+extern "C" int conv3x3_launch_plan(const void* x, const void* w, const void* bias, void* y, int B,
+                                   int H, int W, int cin, int cout, int co_t, int mt, int sw,
+                                   int slabs, int rows, int rowchunks, void* stream) {
+  if (cout % 8 != 0 || cin <= 0 || co_t <= 0 || co_t % 8 != 0 || co_t > 64 || cout % co_t != 0 ||
+      mt < 1 || mt > 8 || sw < 1 || sw > 16 * mt || static_cast<long long>(slabs) * sw < W ||
+      rows < 1 || static_cast<long long>(rows) * rowchunks < H || B <= 0)
+    return cudaErrorInvalidValue;
+  const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<const float*>(bias), static_cast<bf16*>(y), B, H, W, cin, cout,
+                   co_t, mt, sw, slabs, rows, rowchunks};
+  return launch_conv3x3(a, static_cast<cudaStream_t>(stream));
+}
+
+// The plan conv3x3_launch takes for a shape on `sms` SMs, into out[6]:
+// co_t, mt, sw, slabs, rows, rowchunks; returns 0, or an error where no
+// plan fits.
+extern "C" int conv3x3_plan(int B, int H, int W, int cin, int cout, int sms, int* out) {
+  ConvPlan p;
+  if (!conv_plan(B, H, W, cin, cout, sms, p)) return cudaErrorInvalidValue;
+  const int v[6] = {p.co_t, p.mt, p.sw, p.slabs, p.rows, p.rowchunks};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
 
 // dw (3,3,cin,cout) f32 from x (B,H,W,cin) bf16 and g (B,H,W,cout) bf16, in
 // one launch of grid (nchunks, ci tiles, co tiles). The split is made by

@@ -7,7 +7,10 @@ The kernels, each replacing one TPU kernel of that module:
 
   (a) ``conv_fwd_cuda`` / ``conv_dx_cuda`` (``_conv_kernel`` :103): the 3x3
       conv + bias, bf16 operands, f32 sums, bf16 out; the input gradient is
-      the same kernel on the flipped-transposed weights with no bias;
+      the same kernel on the flipped-transposed weights with no bias. A
+      block streams a strip of input rows of one column slab through a
+      cp.async ring and computes 4 output rows an iteration for a tile of
+      up to 64 output channels (``_conv_plan`` mirrors its launch plan);
   (b) ``conv_dw_cuda`` (``_dw_kernel`` :212 with ``unpack_dw``): the f32
       weight gradient in one launch: each block streams a chunk of image
       rows through a cp.async ring, once per operand, and the chunk
@@ -18,7 +21,8 @@ The kernels, each replacing one TPU kernel of that module:
       order) as uint8;
   (d) ``bn_pool_bwd_cuda`` (``_bn_pool_bwd_idx_kernel`` :801): the pooled
       cotangent routed to the saved taps, summed in tap order, times the
-      LeakyReLU slope, as f32 dz;
+      LeakyReLU slope, as f32 dz; a block stages the cells that cover its
+      tile of pixels once, in shared memory;
   (e) ``bn_pool_fwd_notap_cuda`` (``_bn_pool_kernel`` :302): (c) without the
       taps;
   (f) ``bn_pool_bwd_recompute_cuda`` (``_bn_pool_bwd_kernel`` :397): (d)'s
@@ -33,10 +37,17 @@ tie as ``jnp.maximum`` does; ``F.max_pool2d``, first max); any other value
 needs no gradient runs (e) alone on every backend, as the primal of JAX's
 custom VJP.
 
-All six are bound by bytes on the H100 (see the source notes). (b) streams
-x and g once each through a shared-memory ring and sums in one launch;
-an earlier design, which read x once per output-channel tile, staged it by
-transposing stores and took a second launch, ran 2.4x slower. Layouts
+All six are bound by bytes on the H100 (see the source notes), though (a)
+and the small calls of each run below that bound's rate: each iteration's
+chain of copies, mma chains and stores, and at 24x80 and 48x160 a block's
+start, set their pace (measured, NVIDIA H100 80GB HBM3, 700.00 W). (b)
+streams x and g once each through a shared-memory ring and sums in one
+launch; an earlier design, which read x once per output-channel tile,
+staged it by transposing stores and took a second launch, ran 2.4x
+slower. (a) replaced a block per 16x16 output tile, staged whole and then
+computed, that read its input once per 32-channel tile; (d) a
+grid-stride loop over (pixel, channel group) that divided 64-bit indices
+and tested all 9 taps. Layouts
 are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
 weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
 ``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts
@@ -57,7 +68,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -180,6 +191,10 @@ def _conv_lib() -> ctypes.CDLL:
     v, i = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_launch.argtypes = [v, v, v, v, i, i, i, i, i, v]
     lib.conv3x3_launch.restype = i
+    lib.conv3x3_launch_plan.argtypes = [v, v, v, v] + [i] * 11 + [v]
+    lib.conv3x3_launch_plan.restype = i
+    lib.conv3x3_plan.argtypes = [i] * 6 + [v]
+    lib.conv3x3_plan.restype = i
     lib.conv_dw_launch.argtypes = [v, v, v, v, v] + [i] * 12 + [v]
     lib.conv_dw_launch.restype = i
     return lib
@@ -222,6 +237,8 @@ def _conv3x3(x, w, bias, what):
         _require(bias, torch.float32, (cout,), f"{what} bias")
     if cout % 8:
         raise ValueError(f"{what}: {cout} output channels, not a multiple of 8")
+    if _conv_plan(B, H, W, cin, cout) is None:
+        raise ValueError(f"{what}: no launch plan for {(B, H, W, cin, cout)}")
     y = torch.empty(B, H, W, cout, dtype=_BF, device=x.device)
     lib = _conv_lib()
     code = lib.conv3x3_launch(
@@ -230,6 +247,16 @@ def _conv3x3(x, w, bias, what):
     _build.check(lib, code, "conv3x3_launch")
     launches[what] += 1
     return y
+
+
+def conv_plan_on_card(B: int, H: int, W: int, cin: int, cout: int, device=None) -> ConvPlan:
+    """The plan ``conv3x3_launch`` takes on this card (``conv_plan`` in the
+    source, on its SM count), for holding ``_conv_plan`` to it."""
+    out = (ctypes.c_int * 6)()
+    sms = torch.cuda.get_device_properties(device or torch.cuda.current_device()).multi_processor_count
+    lib = _conv_lib()
+    _build.check(lib, lib.conv3x3_plan(B, H, W, cin, cout, sms, out), "conv3x3_plan")
+    return ConvPlan(*out)
 
 
 def conv_fwd_cuda(x, w, bias):
@@ -309,33 +336,132 @@ def dw_chunks(plan: DwPlan, H: int, W: int):
                (s * plan.sw, min(W, (s + 1) * plan.sw)))
 
 
-_CONV_SMEM_MAX = 232448  # shared memory a block of kernel (a) may take
+# kernel (a)'s launch plan (csrc/conv_train.cu conv_layout / conv_plan mirror it)
+_CONV_ROWS = 4  # output rows an iteration computes
+_CONV_RAW_CIN = 5  # input channels up to which the rows stay raw
+_CONV_EXP_SLOTS = 10  # raw path: rows expanded to 4 or 8 channels a pixel
+_SM_SMEM = 233472  # shared memory of a SM
+_BLOCK_RESERVE = 1024 + 128  # per block: the runtime's 1 KB and the static raw_at
+_CONV_SMEM_MAX = 232448 - 128  # dynamic shared memory a block may take
+_SMS = 132  # the H100's SMs, for plans made off the card
+_CONV_START_ROWS = 12  # a block's start (weights, first 6 rows), in rows of work
 
 
-def _conv_smem(cin: int, cout: int) -> int:
-    """Kernel (a)'s shared memory for one call (``conv_smem`` in the source:
-    the channel tile's weights and the 18x18 input tile, channels padded
-    to 16)."""
-    co_t = 32 if cout % 32 == 0 else 16 if cout % 16 == 0 else 8
-    cinp = -(-cin // 16) * 16
-    weights = -(-co_t * (9 * cinp + 8) * 2 // 16) * 16
-    return weights + 18 * 18 * (cinp + 8) * 2
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _conv_smem(cin: int, co_t: int, mt: int) -> int:
+    """Bytes of kernel (a)'s dynamic shared memory (``conv_layout`` in the
+    source): the tile's weights, the input-row ring (10 slots; 14 raw rows
+    for cin <= 5, with 10 of their 4- or 8-channel expansions), 4 staged
+    output rows and the bias."""
+    raw = cin <= _CONV_RAW_CIN
+    cw, cinp = 16 * mt, _round_up(cin, 16)
+    c4 = 4 if cin <= 4 else 8
+    kh16 = _round_up(3 * c4, 16)
+    kp = 3 * kh16 if raw else 9 * cinp
+    xslot = _round_up((cw + 2) * cin + 14, 8) if raw else (cw + 2) * (cinp + 8)
+    expanded = _CONV_EXP_SLOTS * (cw + kh16 // c4 + 1) * c4 if raw else 0
+    weights = _round_up(_round_up(co_t, 16) * (kp + 8) * 2, 16)
+    stages = 14 if raw else 10
+    return (weights + 2 * stages * xslot + 2 * expanded + 2 * _CONV_ROWS * cw * (co_t + 8)
+            + 4 * co_t)
+
+
+class ConvPlan(NamedTuple):
+    """Kernel (a)'s split of one call. Block (batch row, slab, strip,
+    channel tile) computes the output columns ``[s * sw, (s + 1) * sw)``,
+    rows ``[rc * rows, (rc + 1) * rows)`` (clipped to the image) and the
+    channels ``[ct * co_t, (ct + 1) * co_t)``; its slab row is ``16 * mt``
+    pixels wide."""
+
+    co_t: int
+    mt: int
+    sw: int
+    slabs: int
+    rows: int
+    rowchunks: int
+
+
+def _conv_slab(W: int, cin: int, co_t: int, budget: int):
+    """(mt, sw, slabs) of the widest slab whose layout fits budget, or None."""
+    for mt_cap in range(8, 0, -1):
+        slabs = -(-W // (16 * mt_cap))
+        sw = -(-W // slabs)
+        mt = -(-sw // 16)
+        if _conv_smem(cin, co_t, mt) <= budget:
+            return mt, sw, slabs
+    return None
+
+
+def _conv_plan(B: int, H: int, W: int, cin: int, cout: int, sms: int = _SMS) -> Optional[ConvPlan]:
+    """``conv_plan`` of the source: the widest channel tile (a multiple of 8
+    dividing cout, <= 64) whose layout fits a block at all; the widest slab
+    (<= 128 pixels) whose layout lets 3 blocks share a SM if it is at least
+    4 m16 tiles wide, else 2, else 1. The channel tile halved where even one
+    block per 4 rows would leave SMs empty; the rows cut into strips
+    (multiples of 4) that fill one wave of resident blocks. None where no
+    layout fits or the kernel takes no such call."""
+    if cout % 8 or cin < 1 or min(B, H, W) < 1:
+        return None
+    co_t = next((d for d in range(min(cout, 64) // 8 * 8, 7, -8)
+                 if cout % d == 0 and _conv_smem(cin, d, 1) <= _CONV_SMEM_MAX), None)
+    if co_t is None:
+        return None
+    slab = _conv_slab(W, cin, co_t, _SM_SMEM // 3 - _BLOCK_RESERVE)
+    if slab is None or slab[0] < 4:
+        slab = (_conv_slab(W, cin, co_t, _SM_SMEM // 2 - _BLOCK_RESERVE)
+                or _conv_slab(W, cin, co_t, _CONV_SMEM_MAX))
+    plan = (co_t, *slab)
+    co_t, mt, sw, slabs = plan
+    maxrc = -(-H // _CONV_ROWS)
+    while B * slabs * (cout // co_t) * maxrc < sms and co_t % 16 == 0:
+        co_t //= 2
+    strips = B * slabs * (cout // co_t)
+    # one wave of the blocks the SMs hold, or two where that spreads the
+    # rows more evenly: the fewer (blocks a SM) x (rows + a block's start),
+    # ties to one wave
+    per_sm = min(3, _SM_SMEM // (_conv_smem(cin, co_t, mt) + _BLOCK_RESERVE))
+
+    rc1 = max(1, min(maxrc, per_sm * sms // strips))
+
+    def cut(waves):
+        rc = min(maxrc, rc1 * waves)
+        rows = _round_up(-(-H // rc), _CONV_ROWS)
+        return -(-strips * -(-H // rows) // sms) * (rows + _CONV_START_ROWS), rows
+
+    rows = cut(2)[1] if cut(2)[0] < cut(1)[0] else cut(1)[1]
+    return ConvPlan(co_t, mt, sw, slabs, rows, -(-H // rows))
+
+
+def conv_blocks(plan: ConvPlan, B: int, H: int, W: int, cout: int):
+    """The (batch row, row range, column range, channel range) of every
+    block of kernel (a), in block order, as the kernel reads them."""
+    cotiles = cout // plan.co_t
+    for blk in range(B * plan.slabs * plan.rowchunks * cotiles):
+        ct, rest = blk % cotiles, blk // cotiles
+        rc, rest = rest % plan.rowchunks, rest // plan.rowchunks
+        s, b = rest % plan.slabs, rest // plan.slabs
+        yield (b, (rc * plan.rows, min(H, (rc + 1) * plan.rows)),
+               (s * plan.sw, min(W, (s + 1) * plan.sw)), (ct * plan.co_t, (ct + 1) * plan.co_t))
 
 
 def stage_supported_train(H: int, W: int, cin: int, channels: Sequence[int],
                           strides: Sequence[int], input_grad: bool = False) -> bool:
     """True if the train kernels take every block of the stage: stride 1
     or 2; cout a multiple of 8 (kernel (a)'s forward and bn_pool's C);
-    kernel (a)'s shared memory within a block's for the forward and, where
+    a launch plan of kernel (a) (its layout within a block's shared memory)
+    for the forward and, where
     the block's input takes a gradient (every block after the first, and
     the first with ``input_grad``), for dx, whose output channels (cin)
     must then be a multiple of 8 too; and dw's tiles within its counter
     buffer. The port's counterpart of the JAX package's
     ``stage_supported_train``, with the port's own limits."""
     for j, (cout, s) in enumerate(zip(channels, strides)):
-        if s not in (1, 2) or cout % 8 or cout < 8 or _conv_smem(cin, cout) > _CONV_SMEM_MAX:
+        if s not in (1, 2) or cout % 8 or cout < 8 or _conv_plan(1, H, W, cin, cout) is None:
             return False
-        if (j > 0 or input_grad) and (cin % 8 or _conv_smem(cout, cin) > _CONV_SMEM_MAX):
+        if (j > 0 or input_grad) and (cin % 8 or _conv_plan(1, H, W, cout, cin) is None):
             return False
         p = _dw_plan(1, H, W, cin, cout)
         if p.citiles * p.cotiles > _DW_COUNTERS:

@@ -242,6 +242,16 @@ TRAIN_CONV_CASES = [
     (1, 8, 16, 64, 128),
     (1, 37, 45, 8, 24),    # ragged tiles, odd sizes, cout % 16 != 0
     (2, 24, 80, 64, 64),   # the last stage's width
+    (1, 384, 1280, 3, 16),   # the first call of the free step, one batch row
+    (1, 192, 640, 16, 32),
+    (1, 43, 211, 16, 16),    # H not a multiple of the strip, W not of the slab
+    (1, 29, 150, 5, 16),     # the raw path's widest input (8 channels a pixel)
+    (1, 29, 150, 8, 16),     # the NHWC path's narrowest
+    (1, 30, 70, 48, 40),     # the NHWC path's chunk loop (3 chunks), 5 n8 tiles
+    (1, 12, 40, 176, 64),    # the gate's edge in the earlier layout
+    (1, 20, 33, 256, 24),    # past it: the one-block-a-SM budget
+    (1, 1, 1, 12, 24),       # one pixel; unaligned rows (cin = 12)
+    (3, 7, 9, 24, 128),      # the channel tile halved to fill the card
 ]
 
 
@@ -277,6 +287,56 @@ def test_train_conv_kernels_match_plain(dev, B, H, W, cin, cout):
     # f32 sums over B*H*W products in another order: the JAX kernel's bar
     # (tests/test_conv_pallas_train.py), 2e-3 of the largest entry
     assert float((dw - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
+
+
+# kernel (a)'s calls of the free train step (forward and dx)
+FREE_STEP_CONV_CALLS = [
+    (8, 384, 1280, 3, 16), (8, 192, 640, 16, 16), (8, 192, 640, 16, 32), (8, 192, 640, 32, 16),
+    (8, 96, 320, 32, 32), (8, 48, 160, 32, 32), (8, 48, 160, 32, 64), (8, 48, 160, 64, 32),
+    (8, 24, 80, 64, 64), (8, 24, 80, 64, 128), (8, 24, 80, 128, 64),
+]
+
+
+# kernel (a) on plans other than the default one (co_t, mt, rows):
+# channel tiles and slab widths of its forms, one iteration a strip and many
+CONV_PLAN_CASES = [
+    ((2, 50, 300, 3, 16), (16, 8, 4)), ((2, 50, 300, 3, 16), (8, 3, 12)),
+    ((1, 40, 200, 16, 32), (32, 8, 8)), ((1, 40, 200, 16, 32), (16, 2, 40)),
+    ((1, 24, 80, 64, 64), (64, 1, 4)), ((1, 24, 80, 64, 64), (16, 5, 24)),
+    ((1, 9, 70, 5, 8), (8, 5, 4)), ((1, 30, 70, 48, 40), (40, 3, 28)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", CONV_PLAN_CASES)
+def test_conv_kernel_on_other_plans(dev, shape, plan):
+    """conv3x3_launch_plan on a plan the shape does not pick by default,
+    within the same bar as the default plan."""
+    ct = conv_train_cuda
+    B, H, W, cin, cout = shape
+    co_t, mt, rows = plan
+    rng = np.random.default_rng(cin + cout + mt)
+    x = _bf16(dev, rng, B, H, W, cin)
+    w = _bf16(dev, rng, cout, 3, 3, cin, s=0.3)
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+    y = torch.empty(B, H, W, cout, dtype=torch.bfloat16, device=dev)
+    sw = min(W, 16 * mt)
+    lib = ct._conv_lib()
+    code = lib.conv3x3_launch_plan(
+        ct._build.ptr(x), ct._build.ptr(w), ct._build.ptr(b), ct._build.ptr(y), B, H, W, cin, cout,
+        co_t, mt, sw, -(-W // sw), rows, -(-H // rows), ct._build.stream_of(x))
+    ct._build.check(lib, code, "conv3x3_launch_plan")
+    ref = ct.conv_fwd_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert float((y.float() - ref.float()).abs().max()) <= 0.01 * max(float(ref.float().abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", TRAIN_CONV_CASES + FREE_STEP_CONV_CALLS)
+def test_conv_plan_mirror_matches_the_card(dev, B, H, W, cin, cout):
+    """``_conv_plan`` (the mirror the CPU tests check) is the plan the
+    launcher takes, on this card's SM count."""
+    ct = conv_train_cuda
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ct.conv_plan_on_card(B, H, W, cin, cout) == ct._conv_plan(B, H, W, cin, cout, sms)
 
 
 # (b) at the shapes of the free train step: the encoder's seven (cin, cout)
@@ -322,6 +382,15 @@ BN_POOL_CASES = [
     (1, 7, 9, 8, 2, False),    # odd sizes: the pad never wins
     (1, 7, 9, 24, 1, True),
     (1, 24, 80, 128, 2, False),
+    (1, 384, 1280, 16, 2, False),  # the first call of the free step, one batch row
+    (1, 192, 640, 32, 2, True),
+    (1, 33, 71, 40, 1, True),      # odd sizes, 5 channel groups
+    (1, 33, 71, 40, 2, True),
+    (2, 50, 130, 64, 1, False),
+    (1, 24, 80, 128, 1, True),
+    (1, 17, 1, 8, 2, True),        # one column
+    (1, 1, 19, 24, 1, False),      # one row
+    (1, 35, 67, 48, 2, True),      # 6 groups, tiles ragged both ways
 ]
 
 
@@ -345,6 +414,12 @@ def test_bn_pool_kernels_match_plain(dev, B, H, W, C, stride, ties):
     dz = ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, stride)
     torch.cuda.synchronize()
     assert torch.equal(dz, ct.bn_pool_bwd_plain(y, sc, sh, taps, g, stride))
+    # the cotangent routed by other taps (each tap equally likely): every
+    # path of the tap order, not only those the forward's maxima take
+    taps2 = torch.from_numpy(rng.integers(0, 9, size=taps.shape).astype(np.uint8)).to(dev)
+    dz2 = ct.bn_pool_bwd_cuda(y, sc, sh, taps2, g, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(dz2, ct.bn_pool_bwd_plain(y, sc, sh, taps2, g, stride))
 
 
 # B, H, W, C, stride, ties: both strides, ties, ragged 8x8 tiles (H or W

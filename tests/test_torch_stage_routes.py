@@ -55,7 +55,7 @@ GATE_CASES = [
     (16, 24, 3, (16,), (3,), False, False, False),         # stride 3
     (16, 24, 3, (16, 8), (2, 2), True, True, False),       # dx of a 3-channel input
     (8, 8, 2048, (64,), (1,), False, False, False),        # weights past shared memory
-    (8, 8, 256, (64,), (1,), True, False, False),          # kernel (a)'s 18x18 tile does not fit
+    (8, 8, 384, (64,), (1,), True, False, False),          # kernel (a)'s layout does not fit
     (1, 1, 12, (24,), (2,), True, True, False),            # a 1-pixel image; dx of 12 channels
 ]
 

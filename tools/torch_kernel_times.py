@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's FPS, conv_dw, encoder-block and cv1 kernels of one source
-tree, per call shape.
+"""Time the port's FPS, conv_dw, encoder-block, cv1, train-conv and idx
+pool-backward kernels of one source tree, per call shape.
 
     python3 tools/torch_kernel_times.py [--tree DIR] [--label NAME] [--only PART,...]
 
@@ -22,6 +22,20 @@ on the conv alone -- yardsticks of the conv's share, not the same function
 the 15 calls also in one graph, as ``chip_smoke.py`` times a forward's.
 cv1: at B=8, N=256, K=480, C=128 (the shipped widths), with its TFLOP/s and
 its max abs error against ``cv1_plain``.
+conv: kernel (a) at the calls of one free and one proj train step (B=8;
+the forward of each of the 15 encoder convs, dx of the 14 whose input takes
+a gradient), each beside ``F.conv2d`` or ``conv2d_input`` on the same
+operands and its bound, with its max abs error against the plain version;
+each step's calls also in one graph.
+pool: kernel (d) (``bn_pool_bwd_cuda``) at the 15 calls of each step, on
+the taps kernel (c) finds, beside its bound and
+``max_pool2d_with_indices_backward`` on the same routing (a yardstick of the
+routing's share, not the same function), and whether dz equals the plain
+version bit for bit.
+sweep: kernel (a) at each distinct call shape of the free step on other
+launch plans (``conv3x3_launch_plan``; trees that have it), the plan's
+channel tile and slab width varied, and the default plan's rows cut for
+1, 2 and 4 waves of blocks.
 Each time: a CUDA graph of one call replayed, median of 5 after a warm-up.
 Prints one JSON line.
 """
@@ -39,6 +53,7 @@ import sys
 REPEATS = 5
 FPS_LEVELS = (2048, 1024, 256, 64)
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 STAGES = ((3, (16, 16, 16, 16, 32), (2, 1, 1, 1, 2)),
           (32, (32, 32, 32, 32, 64), (2, 1, 1, 1, 2)),
           (64, (64, 64, 64, 64, 128), (1, 1, 1, 1, 2)))
@@ -155,6 +170,150 @@ def time_blocks(torch, conv_cuda, conv_train_cuda, dev, H, W):
     return rows, calls
 
 
+def step_convs(B, H, W):
+    """(B, H, W, cin, cout, stride, dx) of each encoder conv of a train step:
+    dx where the conv's input takes a gradient (every conv but the first)."""
+    return [(*c, i > 0) for i, c in enumerate(encoder_convs(B, H, W))]
+
+
+def bound_ms(nbytes, flops):
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def conv_operands(torch, dev, gen, B, h, w, cin, cout):
+    x = torch.randn(B, h, w, cin, device=dev, generator=gen).to(torch.bfloat16)
+    wt = (0.3 * torch.randn(cout, 3, 3, cin, device=dev, generator=gen)).to(torch.bfloat16)
+    bias = torch.randn(cout, device=dev, generator=gen)
+    return x, wt, bias
+
+
+def time_conv(torch, ct, dev, H, W):
+    """Kernel (a) at each forward and dx call of a train step at H x W."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, fns = [], {"fwd": [], "dx": []}
+    for B, h, w, cin, cout, s, dx in step_convs(8, H, W):
+        calls = [("fwd", cin, cout)] + ([("dx", cout, cin)] if dx else [])
+        for kind, ci, co in calls:  # dx: the conv of the cotangent (co = the block's cin)
+            x, wt, bias = conv_operands(torch, dev, gen, B, h, w, ci, co)
+            if kind == "fwd":
+                fn = lambda x=x, wt=wt, b=bias: ct.conv_fwd_cuda(x, wt, b)
+                ref = ct.conv_fwd_plain(x, wt, bias)
+                xn, wn, bn = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2), bias.to(torch.bfloat16)
+                lib = lambda xn=xn, wn=wn, bn=bn: F.conv2d(xn, wn, bn, padding=1)
+                nbytes = sum(t.numel() * t.element_size() for t in (x, wt, bias)) + B * h * w * co * 2
+            else:
+                fn = lambda x=x, wt=wt: ct.conv_dx_cuda(x, wt)
+                ref = ct.conv_dx_plain(x, wt)
+                # dx = conv2d_input of the forward conv whose weights wt flips
+                gn, wf = x.permute(0, 3, 1, 2), wt.flip(1, 2).permute(3, 0, 1, 2)
+                lib = lambda gn=gn, wf=wf, B=B, h=h, w=w, co=co: torch.nn.grad.conv2d_input(
+                    (B, co, h, w), wf, gn, padding=1)
+                nbytes = sum(t.numel() * t.element_size() for t in (x, wt)) + B * h * w * co * 2
+            err = float((fn().float() - ref.float()).abs().max())
+            row = {"kind": kind, "shape": [B, h, w, ci, co], "ms": replay_ms(fn),
+                   "library_ms": replay_ms(lib),
+                   "bound_ms": bound_ms(nbytes, 2.0 * B * h * w * 9 * ci * co),
+                   "max_abs_err": err, "bar": 0.01 * max(float(ref.float().abs().max()), 1.0)}
+            rows.append(row)
+            fns[kind].append(fn)
+    return rows, fns
+
+
+def route_indices(torch, taps, g, stride, H, W):
+    """max_pool2d_with_indices_backward's operands for the routing of taps:
+    NCHW views of g and a stand-in input, and the flat first-max index."""
+    B, Ho, Wo, C = g.shape
+    tap = taps.long()
+    oh = torch.arange(Ho, device=g.device)[None, :, None, None]
+    ow = torch.arange(Wo, device=g.device)[None, None, :, None]
+    idx = (oh * stride + tap // 3 - 1) * W + ow * stride + tap % 3 - 1
+    x = torch.empty(B, H, W, C, dtype=g.dtype, device=g.device)
+    return g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), idx.permute(0, 3, 1, 2)
+
+
+def time_pool(torch, ct, dev, H, W):
+    """Kernel (d) at each bn_pool call of a train step at H x W."""
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, fns = [], []
+    for B, h, w, _, cout, s, _ in step_convs(8, H, W):
+        y = torch.randn(B, h, w, cout, device=dev, generator=gen).to(torch.bfloat16)
+        sc = torch.rand(cout, device=dev, generator=gen) + 0.5
+        sh = 0.1 * torch.randn(cout, device=dev, generator=gen)
+        _, taps = ct.bn_pool_fwd_cuda(y, sc, sh, s)
+        g = torch.randn(*taps.shape, device=dev, generator=gen).to(torch.bfloat16)
+        fn = lambda y=y, sc=sc, sh=sh, taps=taps, g=g, s=s: ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, s)
+        exact = bool(torch.equal(fn(), ct.bn_pool_bwd_plain(y, sc, sh, taps, g, s)))
+        gn, xn, idx = route_indices(torch, taps, g, s, h, w)
+        lib = lambda gn=gn, xn=xn, idx=idx, s=s: torch.ops.aten.max_pool2d_with_indices_backward(
+            gn, xn, [3, 3], [s, s], [1, 1], [1, 1], False, idx)
+        nbytes = (sum(t.numel() * t.element_size() for t in (y, sc, sh, taps, g))
+                  + y.numel() * 4)
+        rows.append({"shape": [B, h, w, cout, s], "ms": replay_ms(fn), "route_yardstick_ms":
+                     replay_ms(lib), "bound_ms": bound_ms(nbytes, 0.0), "exact": exact})
+        fns.append(fn)
+    return rows, fns
+
+
+def sweep_conv(torch, ct, dev):
+    """Kernel (a) on other launch plans at each distinct call shape of the
+    free step: each channel tile that divides cout and each slab width
+    whose layout fits, the rows cut as the default plan cuts them."""
+    lib = ct._conv_lib()
+    gen = torch.Generator(dev).manual_seed(0)
+    shapes = []
+    for B, h, w, cin, cout, s, dx in step_convs(8, 384, 1280):
+        shapes.append((B, h, w, cin, cout))
+        if dx:
+            shapes.append((B, h, w, cout, cin))
+    out = []
+    for B, h, w, ci, co in sorted(set(shapes)):
+        x, wt, bias = conv_operands(torch, dev, gen, B, h, w, ci, co)
+        y = torch.empty(B, h, w, co, dtype=torch.bfloat16, device=dev)
+        default = ct._conv_plan(B, h, w, ci, co)
+        row = {"shape": [B, h, w, ci, co], "default": list(default),
+               "default_ms": replay_ms(lambda: ct.conv_fwd_cuda(x, wt, bias)), "plans": []}
+        for d in [d for d in range(min(co, 64) // 8 * 8, 7, -8) if co % d == 0]:
+            for mt_cap in range(8, 0, -1):
+                slabs = -(-w // (16 * mt_cap))
+                sw = -(-w // slabs)
+                mt = -(-sw // 16)
+                smem = ct._conv_smem(ci, d, mt)
+                if smem > ct._CONV_SMEM_MAX or any(
+                        (p["co_t"], p["mt"]) == (d, mt) for p in row["plans"]):
+                    continue
+                strips = B * slabs * (co // d)
+                per_sm = min(3, ct._SM_SMEM // (smem + ct._BLOCK_RESERVE))
+                maxrc = -(-h // 4)
+                rc = max(1, min(maxrc, per_sm * 132 // strips))
+                rows = -(-(-(-h // rc)) // 4) * 4
+                args = (ct._build.ptr(x), ct._build.ptr(wt), ct._build.ptr(bias),
+                        ct._build.ptr(y), B, h, w, ci, co, d, mt, sw, slabs, rows, -(-h // rows))
+
+                def run(args=args):
+                    ct._build.check(lib, lib.conv3x3_launch_plan(*args, ct._build.stream_of(x)),
+                                    "conv3x3_launch_plan")
+                run()
+                err = float((y.float() - ct.conv_fwd_plain(x, wt, bias).float()).abs().max())
+                row["plans"].append({"co_t": d, "mt": mt, "rows": rows, "per_sm": per_sm,
+                                     "ms": replay_ms(run), "max_abs_err": err})
+        # the default slab and tile, the rows cut for 1, 2 and 4 waves
+        d, mt, sw, slabs = default.co_t, default.mt, default.sw, default.slabs
+        row["waves"] = []
+        for waves in (1, 2, 4):
+            rows = max(4, -(-(-(-default.rows // waves)) // 4) * 4)
+            args = (ct._build.ptr(x), ct._build.ptr(wt), ct._build.ptr(bias), ct._build.ptr(y),
+                    B, h, w, ci, co, d, mt, sw, slabs, rows, -(-h // rows))
+
+            def run(args=args):
+                ct._build.check(lib, lib.conv3x3_launch_plan(*args, ct._build.stream_of(x)),
+                                "conv3x3_launch_plan")
+            row["waves"].append({"waves": waves, "rows": rows, "ms": replay_ms(run)})
+        out.append(row)
+    return out
+
+
 def time_cv1(torch, cv_cuda, dev):
     import numpy as np
 
@@ -179,8 +338,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", default="fps,dw,block,cv1",
-                    help="comma-separated parts to time (fps, dw, block, cv1)")
+    ap.add_argument("--only", default="fps,dw,block,cv1,conv,pool",
+                    help="comma-separated parts to time (fps, dw, block, cv1, conv, pool, sweep)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -220,6 +379,25 @@ def main() -> int:
     if "cv1" in parts:
         result["cv1"] = time_cv1(torch, cv_cuda, dev)
         total["cv1_ms"] = result["cv1"]["ms"]
+    for key, (H, W) in (("free", (384, 1280)), ("proj", (160, 512))):
+        if "conv" in parts:
+            rows, fns = time_conv(torch, conv_train_cuda, dev, H, W)
+            result[f"conv_{key}"] = rows
+            for kind in ("fwd", "dx"):
+                sel = [r for r in rows if r["kind"] == kind]
+                for col in ("ms", "library_ms", "bound_ms"):
+                    total[f"conv_{kind}_{key}_{col}"] = sum(r[col] for r in sel)
+                total[f"conv_{kind}_{key}_one_graph_ms"] = replay_ms(lambda: [f() for f in fns[kind]])
+            total[f"conv_{key}_within_bar"] = all(r["max_abs_err"] <= r["bar"] for r in rows)
+        if "pool" in parts:
+            rows, fns = time_pool(torch, conv_train_cuda, dev, H, W)
+            result[f"pool_bwd_{key}"] = rows
+            for col in ("ms", "route_yardstick_ms", "bound_ms"):
+                total[f"pool_bwd_{key}_{col}"] = sum(r[col] for r in rows)
+            total[f"pool_bwd_{key}_one_graph_ms"] = replay_ms(lambda: [f() for f in fns])
+            total[f"pool_bwd_{key}_exact"] = all(r["exact"] for r in rows)
+    if "sweep" in parts and hasattr(conv_train_cuda, "_conv_plan"):
+        result["conv_sweep"] = sweep_conv(torch, conv_train_cuda, dev)
     print(json.dumps(result))
     return 0
 

@@ -38,9 +38,11 @@ each raising on failure:
    and a PyTorch library call for the same function where one exists; dw
    also per call shape, beside ``conv2d_weight`` and its bound; every
    conv fwd and dx call alone beside ``F.conv2d`` / ``conv2d_input`` on the
-   same operands and its bound, every bn_pool bwd call beside its bound and
-   ``max_pool2d_with_indices_backward`` on the same routing (a yardstick,
-   not the same function);
+   same operands and its bound (alone, and ten in one graph, which spreads
+   the graph's own launch), every bn_pool fwd call beside its bound and
+   ``F.max_pool2d(..., return_indices=True)`` on the activated tensor, every
+   bn_pool bwd call beside its bound and ``max_pool2d_with_indices_backward``
+   on the same routing (the two last yardsticks, not the same function);
 8. proj eval: run the forward; check out3/out4 (finite, unit quaternions,
    a second forward identical) and the launches in one forward (select 5,
    encoder block 15, FPS 0, cv1 0);
@@ -50,7 +52,8 @@ each raising on failure:
 10. time the proj forward (median of 3 windows of 20) and under CUDA-graph
    replay (which also proves it has no host synchronisation), and the
    select kernel's launches of one forward by graph replay beside its plain
-   version and its bound;
+   version and its bound, and each select call alone (and ten in one
+   graph);
 11. proj train, the default pool backward (idx): one step (identity
    decalibration, dropout on, Adam); check the launches (conv fwd 15, dx
    14, dw 15, bn_pool fwd 15, bwd 15, every other kernel 0), a finite loss,
@@ -58,7 +61,8 @@ each raising on failure:
    a second run from the same seeds repeats the first step bit for bit
    (loss, every gradient, every parameter); every train kernel call of the
    step against its plain version (bars as in 6); time the step as in 7,
-   and conv fwd, dx and bn_pool bwd per proj step and call by call as in 7;
+   and conv fwd, dx, bn_pool fwd and bwd per proj step and call by call as
+   in 7;
 12. ``I2PNET_POOL_BWD=pallas``: one proj step (no-tap bn_pool fwd 15,
    recompute bwd 15, the idx pair 0), every call of those two kernels equal
    to its plain version, and ``fused_stage_train`` at the shapes of the
@@ -181,6 +185,12 @@ def replay_ms(fn) -> float:
     return cuda_ms(graph_of(fn).replay, KERNEL_REPEATS)
 
 
+def in_graph_ms(fn, n: int = 10) -> float:
+    """fn's time a call with n calls in one graph: the graph's own launch,
+    which a single call's replay carries whole, spread over n."""
+    return replay_ms(lambda: [fn() for _ in range(n)]) / n
+
+
 def make_inputs(cfg, device):
     """The inputs bench.py makes, from numpy with seed 0."""
     import numpy as np
@@ -289,13 +299,12 @@ BOUNDS["pool_route_s2"] = BOUNDS["pool_route_s1"]
 
 
 def select_ops(a, m) -> float:
-    """The select kernel's f32 operations on this run's data: per slot its
-    distance and validity (13), per argmin pass 2 per slot; a query runs a
-    pass per selected slot, and one more that finds none unless all K hit."""
+    """The select's f32 operations on this run's data: per slot its
+    distance and validity (13), and for every query with a valid slot one
+    pass of 2 per slot that selects (the nearest, or a radix round)."""
     S = a[4][0] * a[4][1]
-    distinct = (m[..., :S] > 0).sum(-1)
-    passes = float((distinct + (distinct < a[5]).long()).sum())
-    return 13.0 * m.shape[0] * m.shape[1] * S + 2.0 * S * passes
+    found = float(((m[..., :S] > 0).sum(-1) > 0).sum())
+    return 13.0 * m.shape[0] * m.shape[1] * S + 2.0 * S * found
 
 
 BOUNDS["select"] = lambda a, out: bound(nbytes(a[0], out), select_ops(a, out), F32_FLOPS)
@@ -457,13 +466,16 @@ def dw_shapes(calls, card) -> None:
 
 
 def train_call_shapes(name, calls, card, label: str):
-    """Each call of kernel (a) (conv_fwd, conv_dx) or (d) (bn_pool_bwd) of
-    one train step by graph replay, beside its library call -- ``F.conv2d``
-    or ``conv2d_input`` on the same operands -- or, for bn_pool_bwd,
-    ``max_pool2d_with_indices_backward`` on the same routing (a yardstick of
-    the routing's share, not the same function), and the call's bound.
-    Returns the rows, kept in the kernels' JSON line."""
+    """Each call of kernel (a) (conv_fwd, conv_dx), (c) (bn_pool_fwd) or (d)
+    (bn_pool_bwd) of one train step by graph replay, beside its library call
+    -- ``F.conv2d`` or ``conv2d_input`` on the same operands -- or a
+    yardstick that is not the same function: for bn_pool_fwd
+    ``F.max_pool2d(..., return_indices=True)`` on the activated tensor (the
+    pool's share), for bn_pool_bwd ``max_pool2d_with_indices_backward`` on the
+    same routing (the routing's share); and the call's bound. Returns the
+    rows, kept in the kernels' JSON line."""
     import torch
+    import torch.nn.functional as F
 
     from i2pnet_tpu_torch.ops import conv_train_cuda as ct
 
@@ -478,25 +490,59 @@ def train_call_shapes(name, calls, card, label: str):
             g, x, idx, st = ops[k]
             return torch.ops.aten.max_pool2d_with_indices_backward(
                 g, x, [3, 3], [st, st], [1, 1], [1, 1], False, idx)
+    elif name == "bn_pool_fwd":  # a = (y, sc, sh, stride): the activation outside the replay
+        acts = []
+        for (y, sc, sh, st), _ in calls:
+            z = y.float() * sc + sh
+            a = torch.where(z >= 0, z, 0.1 * z).to(torch.bfloat16)
+            acts.append((a.permute(0, 3, 1, 2), st))
+
+        def lib(k):
+            a, st = acts[k]
+            return F.max_pool2d(a, 3, st, 1, return_indices=True)
     else:
         lib = library_calls(name, calls)
-    rows, total = [], [0.0, 0.0, 0.0]
+    yardstick = name.startswith("bn_pool")
+    rows, total = [], [0.0, 0.0, 0.0, 0.0]
     for k, (a, out) in enumerate(calls):
         ms = replay_ms(lambda: fn(*a))
+        x10 = in_graph_ms(lambda: fn(*a))
         l_ms = replay_ms(lambda: lib(k))
         b_ms, _ = BOUNDS[name](a, out)
-        shape = list(a[0].shape) + ([a[1].shape[0]] if name != "bn_pool_bwd" else [a[5]])
-        # bn_pool_bwd's yardstick is not the same function: its own key
-        lib_key = "routing_yardstick_ms" if name == "bn_pool_bwd" else "library_ms"
-        rows.append({"shape": shape, "ms": ms, lib_key: l_ms, "bound_ms": b_ms})
-        for i, v in enumerate((ms, l_ms, b_ms)):
+        shape = list(a[0].shape) + ([a[-1]] if yardstick else [a[1].shape[0]])
+        # the bn_pool yardsticks are not the same function: their own key
+        lib_key = {"bn_pool_fwd": "pool_yardstick_ms",
+                   "bn_pool_bwd": "routing_yardstick_ms"}.get(name, "library_ms")
+        rows.append({"shape": shape, "ms": ms, "ms_x10": x10, lib_key: l_ms, "bound_ms": b_ms})
+        for i, v in enumerate((ms, x10, l_ms, b_ms)):
             total[i] += v
-        lib_name = {"conv_fwd": "F.conv2d", "conv_dx": "conv2d_input"}.get(
+        lib_name = {"conv_fwd": "F.conv2d", "conv_dx": "conv2d_input",
+                    "bn_pool_fwd": "max_pool2d with indices (pool yardstick)"}.get(
             name, "max_pool2d_with_indices_backward (routing yardstick)")
-        print(f"{name} {label} call {k} {tuple(shape)}: kernel {ms:.4f} ms, {lib_name} "
-              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
-    print(f"{name} {label}: {len(calls)} calls one by one {total[0]:.4f} ms, library "
-          f"{total[1]:.4f} ms, bound {total[2]:.4f} ms on {card}")
+        print(f"{name} {label} call {k} {tuple(shape)}: kernel {ms:.4f} ms ({x10:.4f} ten in a "
+              f"graph), {lib_name} {l_ms:.4f} ms, bound {b_ms:.4f} ms on {card}")
+    print(f"{name} {label}: {len(calls)} calls one by one {total[0]:.4f} ms ({total[1]:.4f} ten "
+          f"in a graph), library {total[2]:.4f} ms, bound {total[3]:.4f} ms on {card}")
+    return rows
+
+
+def select_call_shapes(calls, card):
+    """Each select call of one proj forward by graph replay, beside the
+    plain version and the call's bound. Returns the rows, kept in the
+    kernels' JSON line."""
+    from i2pnet_tpu_torch.ops import select_cuda
+
+    rows = []
+    for k, (a, out) in enumerate(calls):
+        ms = replay_ms(lambda: select_cuda.selection_multiplicity_cuda(*a))
+        x10 = in_graph_ms(lambda: select_cuda.selection_multiplicity_cuda(*a))
+        p_ms = replay_ms(lambda: select_cuda.selection_multiplicity_plain(*a))
+        b_ms, _ = BOUNDS["select"](a, out)
+        shape = [*a[0].shape[:3], a[1], a[2], *a[4], a[5]]
+        rows.append({"shape": shape, "ms": ms, "ms_x10": x10, "plain_ms": p_ms, "bound_ms": b_ms})
+        print(f"select proj forward call {k} (B, h2, w2, out_h, out_w, kh, kw, K) {tuple(shape)}: "
+              f"kernel {ms:.4f} ms ({x10:.4f} ten in a graph), plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms on {card}")
     return rows
 
 
@@ -593,7 +639,7 @@ def train_kernel_error(name, fn, plain, calls) -> float:
 
 # the kernels whose every call of a step is timed alone (and kept in the
 # JSON line), in the free and the proj step
-PER_CALL = ("conv_fwd", "conv_dx", "bn_pool_bwd")
+PER_CALL = ("conv_fwd", "conv_dx", "bn_pool_fwd", "bn_pool_bwd")
 
 EXACT = ("bn_pool_bwd", "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1",
          "pool_route_s2")
@@ -948,6 +994,7 @@ def main() -> int:
               f"{BATCH * 1000.0 / pgraph_ms:.2f} pairs/s on {card}")
         rows.append(kernel_row(select, proj_launches["select"], errors["select"],
                                captures["select"].calls, card))
+        rows[-1]["per_call_proj_forward"] = select_call_shapes(captures["select"].calls, card)
         proj_block_ms = replay_ms(lambda: [conv_cuda.conv_block_cuda(*a)
                                            for a, _ in captures["encoder_block"].calls])
         print(f"encoder_block proj: {proj_block_ms:.3f} ms for "

@@ -25,15 +25,46 @@
 // The TPU's lane rolls, row pairing and even-w selection matmuls are not
 // carried over.
 //
-// What bounds them on the H100: bytes (a few operations per element). In
-// (c), (e) and (f) each thread owns 8 channels of one output (c, e) or
-// input (f) pixel, so every access is a 16-byte vector (8 bf16, 8 taps as
-// 8 bytes, 8 f32 as two); neighbouring threads take neighbouring channel
-// groups and pixels, and the overlapping windows' re-reads hit the caches.
+// What bounds them on the H100: bytes (a few operations per element). Every
+// global access is a 16-byte vector (8 bf16, 8 taps as 8 bytes, 8 f32 as
+// two); neighbouring threads take neighbouring channel groups and pixels.
 // (f) reads y once per tile with its halo (12x12 staged for 8x8 pixels)
 // and recomputes each cell's 9-tap scan from shared memory: about 9
 // compares per pooled cell and channel, still below the bytes.
 //
+// (c) and (e), one template: a block owns a tile of pooled cells of one
+// batch row (th x 64/CG; th 32 at stride 1, 16 at stride 2, halved down to
+// 4 while the grid would not fill the card) and CG 8-channel groups (the
+// most, up to 8, that divide C / 8), 256 threads.
+// - Indices are 32-bit, from blockIdx and threadIdx; the stride and CG are
+//   template parameters, so every division is by a constant.
+// - It stages the input pixels that the tile's windows cover, with the
+//   halo, once, by 16-byte cp.async, then activates each staged pixel once
+//   in place, a = bf16(LeakyReLU(y * sc + sh)) (each input pixel is
+//   activated once a tile, not once for each of the up to 9 windows that
+//   hold it), and -inf off the image: the plain version's pad. A zero
+//   there would activate to bf16(LeakyReLU(sh)), which can win. sc and sh
+//   are loaded once a thread (all of a thread's vectors have its channel
+//   group).
+// - Each (cell, group) scans its 9 taps from shared memory in row-major
+//   order by a strict >, on bf16 pairs (__hgt2_mask: the float compare of
+//   the same values), the masks selecting the new maxima and, as byte
+//   masks, their taps. No max tree: max() of two equal values (+0, -0)
+//   may return the later one and move the tap. At stride 2 a staged row
+//   keeps its even columns before its odd ones, so the lanes' taps read
+//   consecutive vectors.
+// - out is written as 16-byte vectors, taps as 8-byte ones, neighbouring
+//   lanes on neighbouring addresses.
+// What bounds it, as measured (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/torch_kernel_times.py): the first call (stride 2, 384x1280, 16
+// channels, 173 MB) moves ~2.3 TB/s; a copy of the kernel that stages and
+// stores but neither activates nor scans is only ~10% faster, so the
+// stage-then-store pattern of a block, not its arithmetic, sets that pace.
+// The stage 2-3 calls sit at a launch and a round trip (3-9 us). Slower:
+// the activation and scan in f32, a compare and two selects a channel
+// (0.46 ms a free step against 0.33 on the same tiles), and fixed tiles
+// of 16 and 8 rows (0.31 against 0.30).
+
 // (d): a block owns a tile of input pixels of one batch row (16 x 64/CG at
 // stride 1, 32 x 128/CG at stride 2) and CG 8-channel groups (the most,
 // up to 8, that divide C / 8), 256 threads.
@@ -85,55 +116,184 @@ __device__ __forceinline__ float affine(float y, float s, float o) {
   return __fadd_rn(__fmul_rn(y, s), o);
 }
 
+// (c) and (e): one block per tile of pooled cells of one batch row -- th x
+// TW, TW = 64 / CG -- and CG 8-channel groups, 256 threads; kFwdRow
+// (cell, group) items a tile row, th / 4 items a thread. th, the tile's
+// rows, is halved from kMaxRows (at least to kFwdMinRows) while the grid
+// has fewer blocks than the SMs hold at once, so that the small calls of
+// stages 2-3 fill the card.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdRow = 64;
+constexpr int kFwdMinRows = 4;
+constexpr int kFwdBlocksPerSm = 2048 / kFwdThreads;
+
+template <int S, int CG>
+struct FwdTile {
+  static constexpr int kMaxRows = S == 1 ? 32 : 16;
+  static constexpr int TW = kFwdRow / CG;
+  // the input columns that the tile's windows cover, with the halo; the
+  // rows are (th - 1) * S + 3
+  static constexpr int NC = (TW - 1) * S + 3;
+  // at stride 2 a staged row holds its even columns, then its odd ones, so
+  // that the three taps of a window row read three runs of consecutive
+  // cells' vectors: no shared-memory bank conflicts
+  static constexpr int NE = (NC + 1) / 2;
+
+  // 16-byte vectors staged for a tile of th rows
+  __host__ __device__ static constexpr int vecs(int th) { return ((th - 1) * S + 3) * NC * CG; }
+
+  // the vector of staged (row, column) and channel group gi
+  __device__ static __forceinline__ int at(int r, int c, int gi) {
+    const int col = S == 1 ? c : (c & 1) * NE + (c >> 1);
+    return (r * NC + col) * CG + gi;
+  }
+};
+
+// a = bf16(LeakyReLU(y * sc + sh)) of two packed bf16 (low half first),
+// packed; LeakyReLU(z) = max(z, 0.1 z), which equals the select on z >= 0
+// for every z (0.1 z has z's sign, -0 included)
+__device__ __forceinline__ unsigned activate2(unsigned y2, float s0, float o0, float s1, float o1) {
+  const float z0 = affine(__uint_as_float(y2 << 16), s0, o0);
+  const float z1 = affine(__uint_as_float(y2 & 0xffff0000u), s1, o1);
+  const __nv_bfloat162 a = __floats2bfloat162_rn(fmaxf(z0, __fmul_rn(z0, 0.1f)),
+                                                 fmaxf(z1, __fmul_rn(z1, 0.1f)));
+  return *reinterpret_cast<const unsigned*>(&a);
+}
+
+// 0xffff in each half where the bf16 of a is greater than that of b: the
+// float compare of the same values (so +0 and -0 are equal, a NaN never wins)
+__device__ __forceinline__ unsigned gt_mask(unsigned a, unsigned b) {
+  return __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                     *reinterpret_cast<const __nv_bfloat162*>(&b));
+}
+
 // kTaps: (c), which also writes the winning taps; else (e)
-template <bool kTaps>
-__global__ void bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y,
-                                   const float* __restrict__ sc, const float* __restrict__ sh,
-                                   __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ taps,
-                                   Shape s) {
-  const int C8 = s.C / 8;
-  const long long total = static_cast<long long>(s.B) * s.Ho * s.Wo * C8;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % C8) * 8;
-    long long rest = i / C8;
-    const int ow = static_cast<int>(rest % s.Wo);
-    rest /= s.Wo;
-    const int oh = static_cast<int>(rest % s.Ho);
-    const int b = static_cast<int>(rest / s.Ho);
-    float scv[8], shv[8];
-    load_affine(sc, sh, c, scv, shv);
-    float best[8];
-    __align__(8) uint8_t tap[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      best[j] = -INFINITY;
-      tap[j] = 0;
+template <bool kTaps, int S, int CG>
+__global__ void __launch_bounds__(kFwdThreads)
+bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ sc,
+                   const float* __restrict__ sh, __nv_bfloat16* __restrict__ out,
+                   uint8_t* __restrict__ taps, Shape s, int th, int tiles_x, int tiles_y) {
+  using T = FwdTile<S, CG>;
+  extern __shared__ uint4 a_s[];
+  // the block: column tile fastest, so that neighbouring blocks share
+  // their halo rows in L2; then row tile, channel chunk, batch row
+  const int chunks = s.C / (8 * CG);
+  int blk = blockIdx.x;
+  const int tx = blk % tiles_x;
+  blk /= tiles_x;
+  const int ty = blk % tiles_y;
+  blk /= tiles_y;
+  const int b = blk / chunks, c8 = blk % chunks * CG;
+  const int oh0 = ty * th, ow0 = tx * T::TW;
+  const int h0 = oh0 * S - 1, w0 = ow0 * S - 1;
+  const int nvec = T::vecs(th);
+  const __nv_bfloat16* yb = y + static_cast<size_t>(b) * s.H * s.W * s.C + c8 * 8;
+
+  // 1. the covering input pixels, one 16-byte cp.async a (pixel, group);
+  //    a thread's vectors all have its channel group (kFwdThreads % CG == 0)
+  for (int i = threadIdx.x; i < nvec; i += kFwdThreads) {
+    const int gi = i % CG, p = i / CG;
+    const int r = p / T::NC, c = p % T::NC;
+    const int h = h0 + r, w = w0 + c;
+    if (h >= 0 && h < s.H && w >= 0 && w < s.W)
+      cp_async16(a_s + T::at(r, c, gi), yb + (static_cast<size_t>(h) * s.W + w) * s.C + gi * 8,
+                 16);
+  }
+  cp_async_commit();
+  const int gi = threadIdx.x % CG;
+  float scv[8], shv[8];
+  load_affine(sc, sh, (c8 + gi) * 8, scv, shv);
+  cp_async_wait<0>();
+
+  // 2. a once a staged pixel, in place: each thread its own copies, which
+  //    the wait made visible to it. -inf off the image, as the plain
+  //    version pads: a zero there would activate to bf16(LeakyReLU(sh)),
+  //    which can win
+  for (int i = threadIdx.x; i < nvec; i += kFwdThreads) {
+    const int p = i / CG;
+    const int r = p / T::NC, c = p % T::NC;
+    const int h = h0 + r, w = w0 + c;
+    uint4* v = a_s + T::at(r, c, gi);
+    if (h >= 0 && h < s.H && w >= 0 && w < s.W) {
+      const uint4 raw = *v;
+      *v = make_uint4(activate2(raw.x, scv[0], shv[0], scv[1], shv[1]),
+                      activate2(raw.y, scv[2], shv[2], scv[3], shv[3]),
+                      activate2(raw.z, scv[4], shv[4], scv[5], shv[5]),
+                      activate2(raw.w, scv[6], shv[6], scv[7], shv[7]));
+    } else {
+      *v = make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u);  // bf16 -inf
     }
+  }
+  __syncthreads();
+
+  // 3. each item (cell, group) scans its 9 taps in row-major order by a
+  //    strict >, on bf16 pairs: the first max, as the plain version. The
+  //    pair masks select the new maxima and, as byte masks, their taps.
+  //    Neighbouring lanes take neighbouring groups and cells: 16-byte
+  //    shared loads without conflicts, stores on neighbouring addresses.
+#pragma unroll 2
+  for (int u = 0; u < th / 4; ++u) {
+    const int it = threadIdx.x + u * kFwdThreads;
+    const int j = it / CG % T::TW, i = it / (CG * T::TW);
+    const int oh = oh0 + i, ow = ow0 + j;
+    if (oh >= s.Ho || ow >= s.Wo) continue;
+    uint4 best = make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u);
+    uint2 tap = make_uint2(0u, 0u);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      const int h = oh * s.stride + k / 3 - 1, w = ow * s.stride + k % 3 - 1;
-      if (h < 0 || h >= s.H || w < 0 || w >= s.W) continue;
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(y + ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c);
-      const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float z = affine(__bfloat162float(yv[j]), scv[j], shv[j]);
-        const float a = bf16_round(z >= 0.f ? z : __fmul_rn(z, 0.1f));
-        if (a > best[j]) {
-          best[j] = a;
-          tap[j] = static_cast<uint8_t>(k);
-        }
+      const uint4 a = a_s[T::at(i * S + k / 3, j * S + k % 3, gi)];
+      const unsigned m0 = gt_mask(a.x, best.x), m1 = gt_mask(a.y, best.y);
+      const unsigned m2 = gt_mask(a.z, best.z), m3 = gt_mask(a.w, best.w);
+      best = make_uint4((a.x & m0) | (best.x & ~m0), (a.y & m1) | (best.y & ~m1),
+                        (a.z & m2) | (best.z & ~m2), (a.w & m3) | (best.w & ~m3));
+      if constexpr (kTaps) {
+        // byte j of the mask: channel j's half of m0..m3
+        const unsigned b0 = __byte_perm(m0, m1, 0x6420), b1 = __byte_perm(m2, m3, 0x6420);
+        const unsigned kk = 0x01010101u * k;
+        tap = make_uint2((kk & b0) | (tap.x & ~b0), (kk & b1) | (tap.y & ~b1));
       }
     }
-    __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(best[j]);
-    const size_t at = ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + c;
-    *reinterpret_cast<uint4*>(out + at) = *reinterpret_cast<const uint4*>(o);
-    if constexpr (kTaps) *reinterpret_cast<uint2*>(taps + at) = *reinterpret_cast<const uint2*>(tap);
+    const size_t at = ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + (c8 + gi) * 8;
+    *reinterpret_cast<uint4*>(out + at) = best;
+    if constexpr (kTaps) *reinterpret_cast<uint2*>(taps + at) = tap;
   }
+}
+
+template <bool kTaps, int S, int CG>
+cudaError_t launch_bn_pool_fwd(const void* y, const void* sc, const void* sh, void* out,
+                               void* taps, const Shape& s, cudaStream_t stream) {
+  using T = FwdTile<S, CG>;
+  const int tiles_x = (s.Wo + T::TW - 1) / T::TW;
+  const long long rows_of_tiles = static_cast<long long>(tiles_x) * s.B * (s.C / (8 * CG));
+  const long long resident = static_cast<long long>(kFwdBlocksPerSm) * sm_count();
+  int th = T::kMaxRows;
+  while (th > kFwdMinRows && (s.Ho + th - 1) / th * rows_of_tiles < resident) th /= 2;
+  const int tiles_y = (s.Ho + th - 1) / th;
+  const long long blocks = tiles_y * rows_of_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = T::vecs(th) * 16;
+  auto kern = bn_pool_fwd_kernel<kTaps, S, CG>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(blocks), kFwdThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
+      static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out),
+      static_cast<uint8_t*>(taps), s, th, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+template <bool kTaps, int S>
+cudaError_t launch_bn_pool_fwd_s(const void* y, const void* sc, const void* sh, void* out,
+                                 void* taps, const Shape& s, cudaStream_t stream) {
+  // CG: the most 8-channel groups, up to 8, that divide C / 8
+  const int C8 = s.C / 8;
+  if (C8 % 8 == 0) return launch_bn_pool_fwd<kTaps, S, 8>(y, sc, sh, out, taps, s, stream);
+  if (C8 % 4 == 0) return launch_bn_pool_fwd<kTaps, S, 4>(y, sc, sh, out, taps, s, stream);
+  if (C8 % 2 == 0) return launch_bn_pool_fwd<kTaps, S, 2>(y, sc, sh, out, taps, s, stream);
+  return launch_bn_pool_fwd<kTaps, S, 1>(y, sc, sh, out, taps, s, stream);
 }
 
 // (d): one block per tile of input pixels of one batch row -- TH x TW, in
@@ -393,13 +553,6 @@ __global__ void bn_pool_bwd_recompute_kernel(const __nv_bfloat16* __restrict__ y
   dst[1] = *reinterpret_cast<const float4*>(o + 4);
 }
 
-// enough blocks of 256 threads to fill the card a few times over; the
-// kernels stride over the rest
-inline int grid_for(long long items) {
-  const long long blocks = (items + 255) / 256;
-  return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
-}
-
 inline bool valid(const Shape& s) {
   return s.C % 8 == 0 && (s.stride == 1 || s.stride == 2) && s.B > 0 && s.H > 0 && s.W > 0;
 }
@@ -413,12 +566,9 @@ extern "C" int bn_pool_fwd_launch(const void* y, const void* sc, const void* sh,
                                   void* stream) {
   const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
   if (!valid(s)) return cudaErrorInvalidValue;
-  bn_pool_fwd_kernel<true><<<grid_for(static_cast<long long>(B) * s.Ho * s.Wo * (C / 8)), 256, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out),
-      static_cast<uint8_t*>(taps), s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return stride == 1 ? launch_bn_pool_fwd_s<true, 1>(y, sc, sh, out, taps, s, st)
+                     : launch_bn_pool_fwd_s<true, 2>(y, sc, sh, out, taps, s, st);
 }
 
 // (e): out alone, as bn_pool_fwd_launch's out.
@@ -426,11 +576,9 @@ extern "C" int bn_pool_fwd_notap_launch(const void* y, const void* sc, const voi
                                         int B, int H, int W, int C, int stride, void* stream) {
   const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
   if (!valid(s)) return cudaErrorInvalidValue;
-  bn_pool_fwd_kernel<false><<<grid_for(static_cast<long long>(B) * s.Ho * s.Wo * (C / 8)), 256,
-                              0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out), nullptr, s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return stride == 1 ? launch_bn_pool_fwd_s<false, 1>(y, sc, sh, out, nullptr, s, st)
+                     : launch_bn_pool_fwd_s<false, 2>(y, sc, sh, out, nullptr, s, st);
 }
 
 // dz (B,H,W,C) f32 from y, sc, sh, the saved taps and g (B,Ho,Wo,C) bf16.

@@ -11,6 +11,17 @@ extern "C" const char* i2p_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The SMs of the current device (read once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 // LeakyReLU(0.1) as the JAX package applies it.
 __device__ __forceinline__ float leaky01(float x) { return x >= 0.f ? x : 0.1f * x; }
 

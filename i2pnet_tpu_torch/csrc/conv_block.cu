@@ -461,16 +461,6 @@ Kern pick(bool raw, int ngw, int kc) {
 #undef I2P_NGW
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 }  // namespace
 
 // The split: channel tiles, slabs and their conv width come from

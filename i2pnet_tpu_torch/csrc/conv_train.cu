@@ -559,16 +559,6 @@ bool conv_plan(int B, int H, int W, int cin, int cout, int sms, ConvPlan& p) {
   return strips * p.rowchunks <= 0x7fffffffLL;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 cudaError_t launch_conv3x3(const ConvArgs& a, cudaStream_t stream) {
   const size_t smem = conv_layout(a.cin, a.co_t, a.mt).total;
   if (smem > static_cast<size_t>(kMaxConvSmem)) return cudaErrorInvalidValue;

@@ -490,16 +490,6 @@ cv1_kernel(const bf16* __restrict__ pn, const float* __restrict__ tpi,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 }  // namespace
 
 // pn (B,N,C) bf16, t_pi (B,N,H1) f32, e_pi (B,N,E) f32, qn (B,K,C) bf16,

@@ -18,13 +18,15 @@ The kernels, each replacing one TPU kernel of that module:
   (c) ``bn_pool_fwd_cuda`` (``_bn_pool_fwd_idx_kernel`` :656): ``y * sc +
       sh`` in f32, LeakyReLU(0.1), bf16, the 3x3 max-pool (stride s, pad 1),
       and the winning tap of each pooled cell (the first max in row-major
-      order) as uint8;
+      order) as uint8; a block stages the input pixels that cover its tile
+      of cells once, activates each once in shared memory and scans the
+      cells' windows there;
   (d) ``bn_pool_bwd_cuda`` (``_bn_pool_bwd_idx_kernel`` :801): the pooled
       cotangent routed to the saved taps, summed in tap order, times the
       LeakyReLU slope, as f32 dz; a block stages the cells that cover its
       tile of pixels once, in shared memory;
   (e) ``bn_pool_fwd_notap_cuda`` (``_bn_pool_kernel`` :302): (c) without the
-      taps;
+      taps, the same kernel template;
   (f) ``bn_pool_bwd_recompute_cuda`` (``_bn_pool_bwd_kernel`` :397): (d)'s
       dz from y, sc, sh and g alone, the taps recomputed.
 
@@ -45,9 +47,10 @@ streams x and g once each through a shared-memory ring and sums in one
 launch; an earlier design, which read x once per output-channel tile,
 staged it by transposing stores and took a second launch, ran 2.4x
 slower. (a) replaced a block per 16x16 output tile, staged whole and then
-computed, that read its input once per 32-channel tile; (d) a
-grid-stride loop over (pixel, channel group) that divided 64-bit indices
-and tested all 9 taps. Layouts
+computed, that read its input once per 32-channel tile; (c) and (d)
+grid-stride loops over (pixel, channel group) that divided 64-bit indices
+and tested all 9 taps, (c) activating each input pixel once for each
+window that holds it. Layouts
 are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
 weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
 ``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts

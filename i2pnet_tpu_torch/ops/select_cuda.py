@@ -9,11 +9,14 @@ m (B, out_h*out_w, kh*kw + 1) f32, slot kh*kw the sentinel, each row
 summing to K. The dense eval route (``ops/dense_window.py``) weights its
 BatchNorm statistics and masks its max with m, so no K-gather runs.
 
-On the H100 the work is tiny (a few hundred slots and K argmin passes per
-query) and bound by the bytes of m; the kernel gives each query one warp,
-the slots' distances sit in the lanes' registers (in shared memory for
-windows of more than 255 slots), each pass is a warp shuffle argmin, and
-the lanes write the m row together (see the source note in
+On the H100 the work is tiny (a few hundred slots per query) and bound, in
+principle, by the bytes of m; the kernel gives each query one warp, the
+slots' distances sit in the lanes' registers, a ballot counts the valid
+ones, and the selection takes no pass per neighbour: with at most K valid
+slots all are selected and one ``redux.sync`` argmin finds the nearest,
+with more a ballot radix select finds the K smallest. A block writes its
+queries' m rows as 16-byte vectors. Windows of more than 255 slots take a
+shared-memory kernel of K shuffle-argmin passes (see the source note in
 ``csrc/select.cu``).
 
 Both versions give the same m exactly: the distance is ``(dx*dx + dy*dy) +

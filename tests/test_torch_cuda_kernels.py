@@ -422,6 +422,64 @@ def test_bn_pool_kernels_match_plain(dev, B, H, W, C, stride, ties):
     assert torch.equal(dz2, ct.bn_pool_bwd_plain(y, sc, sh, taps2, g, stride))
 
 
+# B, H, W, C, stride, kind: the forward's tiles (16 x 64 / CG pooled cells
+# at stride 2, 32 x 64 / CG at stride 1) ragged both ways; H or W of 1-3 at
+# both strides; C = 8, 16, 24, 32, 40, 64 and 384 (CG 1, 2, 4 and 8; 384: 6
+# chunks of 8 groups); "ties": inputs on a half-unit grid; "halo": y < 0
+# everywhere and sh = 3, so a zero-filled halo (bf16(LeakyReLU(sh)) = 3)
+# would beat every pixel at the image's edges
+POOL_FWD_EDGE_CASES = [
+    (1, 1, 1, 8, 1, "ties"),
+    (1, 1, 1, 8, 2, "halo"),
+    (2, 2, 3, 24, 1, "halo"),
+    (2, 3, 2, 40, 2, "ties"),
+    (1, 3, 70, 16, 1, "halo"),
+    (1, 70, 3, 16, 2, "halo"),
+    (1, 2, 131, 384, 2, "ties"),
+    (1, 33, 65, 8, 2, "ties"),
+    (1, 33, 65, 8, 1, "halo"),
+    (1, 65, 129, 16, 1, "ties"),
+    (2, 37, 19, 24, 2, "halo"),
+    (1, 45, 30, 40, 1, "ties"),
+    (1, 34, 20, 64, 2, "halo"),
+    (1, 17, 23, 384, 1, "halo"),
+    (1, 18, 11, 384, 2, "ties"),
+    (2, 31, 63, 32, 2, "normal"),
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,stride,kind", POOL_FWD_EDGE_CASES)
+def test_bn_pool_fwd_kernels_edges(dev, B, H, W, C, stride, kind):
+    """(c) out and taps and (e) out bit for bit against their plain versions
+    where the tile is ragged, the image tiny, every channel tiling, ties,
+    and an sh under which an unmasked halo would win."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(B * H * W + C + stride)
+    y = rng.normal(size=(B, H, W, C))
+    sc = rng.uniform(0.5, 1.5, C)
+    sh = 0.1 * rng.normal(size=C)
+    if kind == "ties":
+        y = np.round(y * 2) / 2
+    elif kind == "halo":
+        y, sh = -np.abs(y) - 0.25, np.full(C, 3.0)
+    y = torch.from_numpy(y.astype(np.float32)).to(dev, torch.bfloat16)
+    sc = torch.from_numpy(sc.astype(np.float32)).to(dev)
+    sh = torch.from_numpy(sh.astype(np.float32)).to(dev)
+    before = dict(ct.launches)
+    out, taps = ct.bn_pool_fwd_cuda(y, sc, sh, stride)
+    notap = ct.bn_pool_fwd_notap_cuda(y, sc, sh, stride)
+    torch.cuda.synchronize()
+    assert ct.launches["bn_pool_fwd"] == before["bn_pool_fwd"] + 1
+    assert ct.launches["bn_pool_fwd_notap"] == before["bn_pool_fwd_notap"] + 1
+    out_ref, taps_ref = ct.bn_pool_fwd_plain(y, sc, sh, stride)
+    assert out.shape == (B, (H - 1) // stride + 1, (W - 1) // stride + 1, C)
+    assert torch.equal(out, out_ref) and torch.equal(taps, taps_ref)
+    assert torch.equal(notap, ct.bn_pool_fwd_notap_plain(y, sc, sh, stride))
+    assert torch.equal(notap, out)
+    if kind == "halo":  # every maximum below 3: no halo cell won
+        assert float(out.float().max()) < 3.0
+
+
 # B, H, W, C, stride, ties: both strides, ties, ragged 8x8 tiles (H or W
 # not a multiple of 8, odd sizes), the widths 8-128
 RECOMPUTE_CASES = [
@@ -591,6 +649,100 @@ def test_select_kernel_matches_plain(dev, B, grid, out_hw, qstride, kernel, K, d
     assert bool((got.sum(-1) == K).all())
     hits = (got[..., :-1] > 0).sum(-1)
     assert int(hits.max()) > 1  # some queries found several neighbours
+
+
+# the four PointNet levels of the shipped proj config at B=8 (the fifth
+# call repeats the fourth's shape): grid, queries, stride, window, K, radius
+SELECT_LEVELS = [
+    ((64, 1800), (16, 225), (4, 8), (9, 15), 32, 0.75),
+    ((16, 225), (8, 113), (2, 2), (9, 15), 16, 3.0),
+    ((8, 113), (4, 57), (2, 2), (5, 9), 16, 6.0),
+    ((4, 57), (4, 29), (1, 2), (5, 9), 16, 12.0),
+]
+
+
+def _select_grid(rng, kind, B, h2, w2):
+    """Grids that reach each branch of the select kernel: "cluster", every
+    point within 0.05 of (1, 1, 1), so every slot is valid; "same", one
+    point everywhere, so every distance ties (at the 1e-10 floor); "steps",
+    points on a coarse grid, so distances tie across lanes and registers;
+    "zero_centres", every 4th row's and column's points zero: the centres
+    of the even query rows at a (2, 4) query stride; "wrap", points on a
+    circle along the row, so the wrapped columns' neighbours are near."""
+    if kind == "cluster":
+        xyz = 1.0 + 0.05 * rng.random((B, h2, w2, 3))
+    elif kind == "same":
+        xyz = np.ones((B, h2, w2, 3))
+    elif kind == "steps":
+        xyz = np.round(rng.normal(size=(B, h2, w2, 3)) * 2) / 2
+        xyz[rng.random((B, h2, w2)) < 0.2] = 0.0
+    elif kind == "zero_centres":
+        xyz = 1.0 + 0.05 * rng.random((B, h2, w2, 3))
+        xyz[:, ::4, ::4] = 0.0
+    else:  # wrap
+        az = np.linspace(0, 2 * np.pi, w2, endpoint=False)
+        z = 0.01 * np.arange(h2)[:, None]
+        xyz = np.stack(np.broadcast_arrays(np.cos(az), np.sin(az), z), -1)
+        xyz = np.broadcast_to(xyz, (B, h2, w2, 3)) + 0.001 * rng.normal(size=(B, h2, w2, 3))
+    return torch.from_numpy(np.ascontiguousarray(xyz, dtype=np.float32))
+
+
+# kind, B, grid, out_hw, qstride, kernel, K, distance
+SELECT_EDGE_CASES = [
+    ("cluster", 2, (16, 40), (8, 20), (2, 2), (9, 15), 200, 1.0),  # all valid, K > 135
+    ("cluster", 2, (16, 40), (8, 20), (2, 2), (9, 15), 135, 1.0),  # all valid, K = the count
+    ("cluster", 2, (16, 40), (8, 20), (2, 2), (9, 15), 32, 1.0),   # all valid, K below
+    ("cluster", 2, (8, 40), (4, 20), (2, 2), (5, 9), 7, 1.0),
+    ("cluster", 1, (16, 40), (8, 20), (2, 2), (9, 15), 16, 1e-6),  # radius^2 < 1e-10: none
+    ("zero_centres", 2, (16, 40), (8, 10), (2, 4), (9, 15), 32, 1.0),  # invalid centres
+    ("same", 2, (16, 40), (8, 20), (2, 2), (9, 15), 32, 1.0),  # every distance equal
+    ("same", 1, (8, 40), (4, 20), (2, 2), (5, 9), 44, 1.0),
+    ("steps", 2, (16, 64), (8, 32), (2, 2), (9, 15), 16, 2.0),  # ties across lanes, registers
+    ("steps", 2, (16, 64), (8, 32), (2, 2), (5, 9), 8, 3.0),
+    ("wrap", 2, (8, 40), (8, 40), (1, 1), (3, 15), 12, 0.5),   # columns wrap at both edges
+    ("wrap", 1, (8, 33), (4, 17), (2, 2), (5, 9), 16, 0.7),
+]
+
+
+@pytest.mark.parametrize("kind,B,grid,out_hw,qstride,kernel,K,distance", SELECT_EDGE_CASES)
+def test_select_kernel_edges(dev, kind, B, grid, out_hw, qstride, kernel, K, distance):
+    """m exactly as the plain version where every slot is valid (K above,
+    at and below the count), none is, the centre is invalid, distances tie
+    across lanes and registers, and the window wraps at both edges."""
+    xyz = _select_grid(np.random.default_rng(K + grid[1]), kind, B, *grid).to(dev)
+    got = select_cuda.selection_multiplicity_cuda(xyz, *out_hw, qstride, kernel, K, distance)
+    ref = select_cuda.selection_multiplicity_plain(xyz, *out_hw, qstride, kernel, K, distance)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    S = kernel[0] * kernel[1]
+    assert bool((got.sum(-1) == K).all())
+    m = got.reshape(B, *out_hw, S + 1)
+    if distance < 1e-5:  # no valid slot: the sentinel takes the K copies
+        assert bool((m[..., S] == K).all())
+    if kind == "zero_centres":  # so it does at the invalid centres, and only there
+        assert bool((m[:, ::2, :, S] == K).all()) and not bool((m[:, 1::2, :, S] > 0).any())
+    if kind == "wrap":  # the wrapped slots were selected at the first and last columns
+        assert int((m[:, :, 0, :S] > 0).sum()) > 0 and int((m[:, :, -1, :S] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("level", range(len(SELECT_LEVELS)))
+@pytest.mark.parametrize("kind", ["range", "cluster"])
+def test_select_kernel_at_the_proj_levels(dev, level, kind):
+    """Each PointNet level's call at B=8, on a range-image-like grid (a few
+    neighbours a query) and a clustered one (every slot valid, K below the
+    count: the radix select), exactly as the plain version."""
+    grid, out_hw, qstride, kernel, K, distance = SELECT_LEVELS[level]
+    rng = np.random.default_rng(level)
+    if kind == "range":
+        xyz = torch.from_numpy(_range_grid(rng, 8, *grid))
+    else:
+        xyz = _select_grid(rng, "cluster", 8, *grid)
+    xyz = xyz.to(dev)
+    got = select_cuda.selection_multiplicity_cuda(xyz, *out_hw, qstride, kernel, K, distance)
+    ref = select_cuda.selection_multiplicity_plain(xyz, *out_hw, qstride, kernel, K, distance)
+    torch.cuda.synchronize()
+    assert got.shape == (8, out_hw[0] * out_hw[1], kernel[0] * kernel[1] + 1)
+    assert torch.equal(got, ref)
 
 
 def test_select_kernel_rejects_what_it_cannot_take(dev):

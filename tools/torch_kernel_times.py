@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's FPS, conv_dw, encoder-block, cv1, train-conv and idx
-pool-backward kernels of one source tree, per call shape.
+"""Time the port's FPS, conv_dw, encoder-block, cv1, train-conv, idx
+pool-backward and -forward and window-select kernels of one source tree,
+per call shape.
 
     python3 tools/torch_kernel_times.py [--tree DIR] [--label NAME] [--only PART,...]
 
@@ -32,11 +33,23 @@ the taps kernel (c) finds, beside its bound and
 ``max_pool2d_with_indices_backward`` on the same routing (a yardstick of the
 routing's share, not the same function), and whether dz equals the plain
 version bit for bit.
+poolfwd: kernel (c) (``bn_pool_fwd_cuda``) and kernel (e)
+(``bn_pool_fwd_notap_cuda``) at the 15 calls of each step, beside their
+bounds and ``F.max_pool2d(..., return_indices=True)`` on the activated
+tensor (a yardstick of the pool's share, not the same function: no affine,
+no activation, int64 indices), and whether out and taps equal the plain
+version bit for bit.
+select: the window select at the 5 calls of one proj eval forward
+(``chip_smoke.py``'s model and inputs, the calls captured), each beside its
+bound (this run's data) and whether m equals the plain version; then each
+level's shape on a clustered grid, where every slot is valid and K is below
+the count (the kernel's other branch).
 sweep: kernel (a) at each distinct call shape of the free step on other
 launch plans (``conv3x3_launch_plan``; trees that have it), the plan's
 channel tile and slab width varied, and the default plan's rows cut for
 1, 2 and 4 waves of blocks.
-Each time: a CUDA graph of one call replayed, median of 5 after a warm-up.
+Each time: a CUDA graph of one call replayed, median of 5 after a warm-up;
+for poolfwd and select also ``ms_x10``, ten calls in one graph, per call.
 Prints one JSON line.
 """
 
@@ -82,6 +95,13 @@ def replay_ms(fn) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_graph_ms(fn, n=10) -> float:
+    """fn's time a call with n calls in one graph: the graph's own launch
+    spread over n, each kernel's launch inside a graph kept (as in a step's
+    graph)."""
+    return replay_ms(lambda: [fn() for _ in range(n)]) / n
 
 
 def encoder_convs(B=8, H=384, W=1280):
@@ -256,6 +276,83 @@ def time_pool(torch, ct, dev, H, W):
     return rows, fns
 
 
+def time_pool_fwd(torch, ct, dev, H, W):
+    """Kernels (c) and (e) at each bn_pool call of a train step at H x W."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, fns = [], {"c": [], "e": []}
+    for B, h, w, _, cout, s, _ in step_convs(8, H, W):
+        y = torch.randn(B, h, w, cout, device=dev, generator=gen).to(torch.bfloat16)
+        sc = torch.rand(cout, device=dev, generator=gen) + 0.5
+        sh = 0.1 * torch.randn(cout, device=dev, generator=gen)
+        c = lambda y=y, sc=sc, sh=sh, s=s: ct.bn_pool_fwd_cuda(y, sc, sh, s)
+        e = lambda y=y, sc=sc, sh=sh, s=s: ct.bn_pool_fwd_notap_cuda(y, sc, sh, s)
+        out, taps = c()
+        ref_out, ref_taps = ct.bn_pool_fwd_plain(y, sc, sh, s)
+        exact = (torch.equal(out, ref_out) and torch.equal(taps, ref_taps)
+                 and torch.equal(e(), ref_out))
+        z = y.float() * sc + sh
+        a = torch.where(z >= 0, z, 0.1 * z).to(torch.bfloat16).permute(0, 3, 1, 2)
+        lib = lambda a=a, s=s: F.max_pool2d(a, 3, s, 1, return_indices=True)
+        nbytes = sum(t.numel() * t.element_size() for t in (y, sc, sh, out))
+        rows.append({"shape": [B, h, w, cout, s], "ms": replay_ms(c), "notap_ms": replay_ms(e),
+                     "ms_x10": in_graph_ms(c), "notap_ms_x10": in_graph_ms(e),
+                     "pool_yardstick_ms": replay_ms(lib),
+                     "bound_ms": bound_ms(nbytes + taps.numel(), 0.0),
+                     "notap_bound_ms": bound_ms(nbytes, 0.0), "exact": bool(exact)})
+        fns["c"].append(c)
+        fns["e"].append(e)
+    return rows, fns
+
+
+def time_select(torch, dev):
+    """The window select at the calls of one proj eval forward, and each
+    level's shape on a clustered grid (every slot valid)."""
+    import dataclasses
+
+    import numpy as np
+
+    # this checkout's chip_smoke.py (the package is already the tree's)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import Capture, make_proj_inputs, select_ops
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import select_cuda
+
+    cfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    model = init_random_(I2PNetProj(cfg), torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad(), Capture(select_cuda, "selection_multiplicity_cuda") as cap:
+        model(*make_proj_inputs(dev))
+    del model
+    calls = [a for a, _ in cap.calls]
+    rng = np.random.default_rng(0)
+    for a in list(calls[:4]):  # every slot valid: the clustered grid at each level's shape
+        xyz = 1.0 + 0.05 * rng.random(a[0].shape)
+        calls.append((torch.from_numpy(xyz.astype(np.float32)).to(dev), *a[1:]))
+    rows, fns = [], []
+    for k, a in enumerate(calls):
+        fn = lambda a=a: select_cuda.selection_multiplicity_cuda(*a)
+        m = fn()
+        exact = torch.equal(m, select_cuda.selection_multiplicity_plain(*a))
+        nbytes = a[0].numel() * 4 + m.numel() * 4
+        ops = select_ops(a, m)
+        S = a[4][0] * a[4][1]
+        hits = (m[..., :S] > 0).sum(-1).float()
+        rows.append({"grid": "forward" if k < len(cap.calls) else "clustered",
+                     "shape": [*a[0].shape[:3], a[1], a[2], *a[3], *a[4], a[5]],
+                     "ms": replay_ms(fn), "ms_x10": in_graph_ms(fn),
+                     "bound_ms": bound_ms(nbytes, 0.0),
+                     "ops_ms": ops / 67e12 * 1e3, "exact": bool(exact),
+                     # queries whose centre is invalid (no hit, all K on the
+                     # sentinel), and the mean and largest hits a query
+                     "no_hit_share": float((hits == 0).float().mean()),
+                     "mean_hits": float(hits.mean()), "max_hits": int(hits.max())})
+        if k < len(cap.calls):
+            fns.append(fn)
+    return rows, fns
+
+
 def sweep_conv(torch, ct, dev):
     """Kernel (a) on other launch plans at each distinct call shape of the
     free step: each channel tile that divides cout and each slab width
@@ -338,8 +435,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", default="fps,dw,block,cv1,conv,pool",
-                    help="comma-separated parts to time (fps, dw, block, cv1, conv, pool, sweep)")
+    ap.add_argument("--only", default="fps,dw,block,cv1,conv,pool,poolfwd,select",
+                    help="comma-separated parts to time (fps, dw, block, cv1, conv, pool, "
+                         "poolfwd, select, sweep)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -396,6 +494,24 @@ def main() -> int:
                 total[f"pool_bwd_{key}_{col}"] = sum(r[col] for r in rows)
             total[f"pool_bwd_{key}_one_graph_ms"] = replay_ms(lambda: [f() for f in fns])
             total[f"pool_bwd_{key}_exact"] = all(r["exact"] for r in rows)
+        if "poolfwd" in parts:
+            rows, fns = time_pool_fwd(torch, conv_train_cuda, dev, H, W)
+            result[f"pool_fwd_{key}"] = rows
+            for col in ("ms", "notap_ms", "ms_x10", "notap_ms_x10", "pool_yardstick_ms", "bound_ms",
+                        "notap_bound_ms"):
+                total[f"pool_fwd_{key}_{col}"] = sum(r[col] for r in rows)
+            for kind, kfns in fns.items():
+                total[f"pool_fwd_{key}_{kind}_one_graph_ms"] = replay_ms(
+                    lambda: [f() for f in kfns])
+            total[f"pool_fwd_{key}_exact"] = all(r["exact"] for r in rows)
+    if "select" in parts:
+        rows, fns = time_select(torch, dev)
+        result["select"] = rows
+        fwd = [r for r in rows if r["grid"] == "forward"]
+        for col in ("ms", "ms_x10", "bound_ms", "ops_ms"):
+            total[f"select_forward_{col}"] = sum(r[col] for r in fwd)
+        total["select_forward_one_graph_ms"] = replay_ms(lambda: [f() for f in fns])
+        total["select_exact"] = all(r["exact"] for r in rows)
     if "sweep" in parts and hasattr(conv_train_cuda, "_conv_plan"):
         result["conv_sweep"] = sweep_conv(torch, conv_train_cuda, dev)
     print(json.dumps(result))

@@ -65,7 +65,8 @@ each raising on failure:
    in 7;
 12. ``I2PNET_POOL_BWD=pallas``: one proj step (no-tap bn_pool fwd 15,
    recompute bwd 15, the idx pair 0), every call of those two kernels equal
-   to its plain version, and ``fused_stage_train`` at the shapes of the
+   to its plain version and every recompute call to (d)'s dz on (c)'s
+   taps, and ``fused_stage_train`` at the shapes of the
    proj encoder's first two stages bit-identical (out, dx where the input
    has one, dw, db, dgamma, dbeta) under pallas and idx for one cotangent;
 13. a train-mode proj forward under ``torch.no_grad()``: the no-tap
@@ -1123,6 +1124,12 @@ def main() -> int:
             errors[k["name"]] = train_kernel_error(k["name"], getattr(ct, k["fn"]),
                                                    getattr(ct, k["plain"]), captures[k["name"]].calls)
             print(f"{k['name']}: {len(captures[k['name']].calls)} calls equal the plain version")
+        # (f)'s dz is (d)'s on the taps (c) saves, at every call of the step
+        for (y, sc, sh, g, s), dz in captures["bn_pool_bwd_recompute"].calls:
+            taps = ct.bn_pool_fwd_cuda(y, sc, sh, s)[1]
+            check(torch.equal(dz, ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, s)),
+                  f"bn_pool_bwd_recompute {tuple(y.shape)}: dz differs from (d)'s on (c)'s taps")
+        print("bn_pool_bwd_recompute: every call equal to (d) on (c)'s taps")
     gen = torch.Generator(dev).manual_seed(SEED)
     shape = (BATCH, PROJ_H, PROJ_W)
     for stage in ptmodel.rgb_encoder.stages[:2]:

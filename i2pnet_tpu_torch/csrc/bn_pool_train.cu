@@ -17,20 +17,15 @@
 //       the taps, the forward of the pallas/native/sas backends and of every
 //       call that needs no gradient. One template of (c)'s kernel.
 //   (f) _bn_pool_bwd_kernel (:397, launched by _bn_pool_bwd_p :588): (d)'s dz
-//       from y, sc, sh and g alone. A block stages a = bf16(LeakyReLU(y * sc
-//       + sh)) for an 8x8 tile of input pixels with a 2-pixel halo in shared
-//       memory, finds the first-max tap of every pooled cell that covers the
-//       tile (the same strict-> scan as (c)), then each pixel gathers its
-//       <= 9 cells as (d) does. dz equals (d)'s bit for bit.
+//       from y, sc, sh and g alone: (c)'s staging, activation and scan over
+//       the pooled cells that cover a tile of input pixels, then (d)'s
+//       gather. dz equals (d)'s on (c)'s taps bit for bit.
 // The TPU's lane rolls, row pairing and even-w selection matmuls are not
 // carried over.
 //
 // What bounds them on the H100: bytes (a few operations per element). Every
 // global access is a 16-byte vector (8 bf16, 8 taps as 8 bytes, 8 f32 as
 // two); neighbouring threads take neighbouring channel groups and pixels.
-// (f) reads y once per tile with its halo (12x12 staged for 8x8 pixels)
-// and recomputes each cell's 9-tap scan from shared memory: about 9
-// compares per pooled cell and channel, still below the bytes.
 //
 // (c) and (e), one template: a block owns a tile of pooled cells of one
 // batch row (th x 64/CG; th 32 at stride 1, 16 at stride 2, halved down to
@@ -95,7 +90,7 @@
 // into an FMA, and the plain PyTorch version rounds twice. Out and taps are
 // then bit-identical to the plain version, and so is dz.
 
-#include "common.cuh"
+#include "pool_tile.cuh"
 
 namespace {
 
@@ -117,20 +112,15 @@ __device__ __forceinline__ float affine(float y, float s, float o) {
 }
 
 // (c) and (e): one block per tile of pooled cells of one batch row -- th x
-// TW, TW = 64 / CG -- and CG 8-channel groups, 256 threads; kFwdRow
+// TW, TW = 64 / CG -- and CG 8-channel groups, kPoolThreads threads; 64
 // (cell, group) items a tile row, th / 4 items a thread. th, the tile's
-// rows, is halved from kMaxRows (at least to kFwdMinRows) while the grid
-// has fewer blocks than the SMs hold at once, so that the small calls of
-// stages 2-3 fill the card.
-constexpr int kFwdThreads = 256;
-constexpr int kFwdRow = 64;
-constexpr int kFwdMinRows = 4;
-constexpr int kFwdBlocksPerSm = 2048 / kFwdThreads;
+// rows, is halved from kMaxRows while the grid would not fill the card
+// (pool_pass_rows), so that the small calls of stages 2-3 fill it.
 
 template <int S, int CG>
 struct FwdTile {
   static constexpr int kMaxRows = S == 1 ? 32 : 16;
-  static constexpr int TW = kFwdRow / CG;
+  static constexpr int TW = 64 / CG;
   // the input columns that the tile's windows cover, with the halo; the
   // rows are (th - 1) * S + 3
   static constexpr int NC = (TW - 1) * S + 3;
@@ -151,13 +141,22 @@ struct FwdTile {
 
 // a = bf16(LeakyReLU(y * sc + sh)) of two packed bf16 (low half first),
 // packed; LeakyReLU(z) = max(z, 0.1 z), which equals the select on z >= 0
-// for every z (0.1 z has z's sign, -0 included)
-__device__ __forceinline__ unsigned activate2(unsigned y2, float s0, float o0, float s1, float o1) {
+// for every z (0.1 z has z's sign, -0 included). Bits j and j + 1 of
+// nonneg are set where z >= 0: the LeakyReLU slope, which a cannot give (z
+// = -0 and a tiny z < 0 both activate to a = -0)
+__device__ __forceinline__ unsigned activate2(unsigned y2, float s0, float o0, float s1, float o1,
+                                              int j, unsigned& nonneg) {
   const float z0 = affine(__uint_as_float(y2 << 16), s0, o0);
   const float z1 = affine(__uint_as_float(y2 & 0xffff0000u), s1, o1);
+  nonneg |= (z0 >= 0.f ? 1u << j : 0u) | (z1 >= 0.f ? 2u << j : 0u);
   const __nv_bfloat162 a = __floats2bfloat162_rn(fmaxf(z0, __fmul_rn(z0, 0.1f)),
                                                  fmaxf(z1, __fmul_rn(z1, 0.1f)));
   return *reinterpret_cast<const unsigned*>(&a);
+}
+
+__device__ __forceinline__ unsigned activate2(unsigned y2, float s0, float o0, float s1, float o1) {
+  unsigned unused = 0;
+  return activate2(y2, s0, o0, s1, o1, 0, unused);
 }
 
 // 0xffff in each half where the bf16 of a is greater than that of b: the
@@ -167,31 +166,49 @@ __device__ __forceinline__ unsigned gt_mask(unsigned a, unsigned b) {
                      *reinterpret_cast<const __nv_bfloat162*>(&b));
 }
 
+// The first max of a pooled cell's 9 taps (tap(k): the activated vector of
+// tap k, row-major), by a strict > on bf16 pairs, into best; with kTaps its
+// tap a channel into the 8 bytes of tap. The pair masks select the new
+// maxima and, as byte masks, their taps. No max tree: max() of two equal
+// values (+0, -0) may return the later one and move the tap.
+template <bool kTaps, typename Tap>
+__device__ __forceinline__ void scan9(Tap tap_of, uint4& best, uint2& tap) {
+  best = make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u);  // bf16 -inf
+  tap = make_uint2(0u, 0u);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const uint4 a = tap_of(k);
+    const unsigned m0 = gt_mask(a.x, best.x), m1 = gt_mask(a.y, best.y);
+    const unsigned m2 = gt_mask(a.z, best.z), m3 = gt_mask(a.w, best.w);
+    best = make_uint4((a.x & m0) | (best.x & ~m0), (a.y & m1) | (best.y & ~m1),
+                      (a.z & m2) | (best.z & ~m2), (a.w & m3) | (best.w & ~m3));
+    if constexpr (kTaps) {
+      // byte j of the mask: channel j's half of m0..m3
+      const unsigned b0 = __byte_perm(m0, m1, 0x6420), b1 = __byte_perm(m2, m3, 0x6420);
+      const unsigned kk = 0x01010101u * k;
+      tap = make_uint2((kk & b0) | (tap.x & ~b0), (kk & b1) | (tap.y & ~b1));
+    }
+  }
+}
+
 // kTaps: (c), which also writes the winning taps; else (e)
 template <bool kTaps, int S, int CG>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kPoolThreads)
 bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ sc,
                    const float* __restrict__ sh, __nv_bfloat16* __restrict__ out,
                    uint8_t* __restrict__ taps, Shape s, int th, int tiles_x, int tiles_y) {
   using T = FwdTile<S, CG>;
   extern __shared__ uint4 a_s[];
-  // the block: column tile fastest, so that neighbouring blocks share
-  // their halo rows in L2; then row tile, channel chunk, batch row
-  const int chunks = s.C / (8 * CG);
-  int blk = blockIdx.x;
-  const int tx = blk % tiles_x;
-  blk /= tiles_x;
-  const int ty = blk % tiles_y;
-  blk /= tiles_y;
-  const int b = blk / chunks, c8 = blk % chunks * CG;
-  const int oh0 = ty * th, ow0 = tx * T::TW;
+  const PoolBlock blk(tiles_x, tiles_y, s.C / (8 * CG));
+  const int b = blk.b, c8 = blk.chunk * CG;
+  const int oh0 = blk.ty * th, ow0 = blk.tx * T::TW;
   const int h0 = oh0 * S - 1, w0 = ow0 * S - 1;
   const int nvec = T::vecs(th);
   const __nv_bfloat16* yb = y + static_cast<size_t>(b) * s.H * s.W * s.C + c8 * 8;
 
   // 1. the covering input pixels, one 16-byte cp.async a (pixel, group);
-  //    a thread's vectors all have its channel group (kFwdThreads % CG == 0)
-  for (int i = threadIdx.x; i < nvec; i += kFwdThreads) {
+  //    a thread's vectors all have its channel group (kPoolThreads % CG == 0)
+  for (int i = threadIdx.x; i < nvec; i += kPoolThreads) {
     const int gi = i % CG, p = i / CG;
     const int r = p / T::NC, c = p % T::NC;
     const int h = h0 + r, w = w0 + c;
@@ -209,7 +226,7 @@ bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
   //    the wait made visible to it. -inf off the image, as the plain
   //    version pads: a zero there would activate to bf16(LeakyReLU(sh)),
   //    which can win
-  for (int i = threadIdx.x; i < nvec; i += kFwdThreads) {
+  for (int i = threadIdx.x; i < nvec; i += kPoolThreads) {
     const int p = i / CG;
     const int r = p / T::NC, c = p % T::NC;
     const int h = h0 + r, w = w0 + c;
@@ -226,33 +243,18 @@ bn_pool_fwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
   }
   __syncthreads();
 
-  // 3. each item (cell, group) scans its 9 taps in row-major order by a
-  //    strict >, on bf16 pairs: the first max, as the plain version. The
-  //    pair masks select the new maxima and, as byte masks, their taps.
-  //    Neighbouring lanes take neighbouring groups and cells: 16-byte
+  // 3. each item (cell, group) scans its 9 taps (scan9): the first max, as
+  //    the plain version. Neighbouring lanes take neighbouring groups and cells: 16-byte
   //    shared loads without conflicts, stores on neighbouring addresses.
 #pragma unroll 2
   for (int u = 0; u < th / 4; ++u) {
-    const int it = threadIdx.x + u * kFwdThreads;
+    const int it = threadIdx.x + u * kPoolThreads;
     const int j = it / CG % T::TW, i = it / (CG * T::TW);
     const int oh = oh0 + i, ow = ow0 + j;
     if (oh >= s.Ho || ow >= s.Wo) continue;
-    uint4 best = make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u);
-    uint2 tap = make_uint2(0u, 0u);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const uint4 a = a_s[T::at(i * S + k / 3, j * S + k % 3, gi)];
-      const unsigned m0 = gt_mask(a.x, best.x), m1 = gt_mask(a.y, best.y);
-      const unsigned m2 = gt_mask(a.z, best.z), m3 = gt_mask(a.w, best.w);
-      best = make_uint4((a.x & m0) | (best.x & ~m0), (a.y & m1) | (best.y & ~m1),
-                        (a.z & m2) | (best.z & ~m2), (a.w & m3) | (best.w & ~m3));
-      if constexpr (kTaps) {
-        // byte j of the mask: channel j's half of m0..m3
-        const unsigned b0 = __byte_perm(m0, m1, 0x6420), b1 = __byte_perm(m2, m3, 0x6420);
-        const unsigned kk = 0x01010101u * k;
-        tap = make_uint2((kk & b0) | (tap.x & ~b0), (kk & b1) | (tap.y & ~b1));
-      }
-    }
+    uint4 best;
+    uint2 tap;
+    scan9<kTaps>([&](int k) { return a_s[T::at(i * S + k / 3, j * S + k % 3, gi)]; }, best, tap);
     const size_t at = ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + (c8 + gi) * 8;
     *reinterpret_cast<uint4*>(out + at) = best;
     if constexpr (kTaps) *reinterpret_cast<uint2*>(taps + at) = tap;
@@ -265,24 +267,13 @@ cudaError_t launch_bn_pool_fwd(const void* y, const void* sc, const void* sh, vo
   using T = FwdTile<S, CG>;
   const int tiles_x = (s.Wo + T::TW - 1) / T::TW;
   const long long rows_of_tiles = static_cast<long long>(tiles_x) * s.B * (s.C / (8 * CG));
-  const long long resident = static_cast<long long>(kFwdBlocksPerSm) * sm_count();
-  int th = T::kMaxRows;
-  while (th > kFwdMinRows && (s.Ho + th - 1) / th * rows_of_tiles < resident) th /= 2;
+  const int th = pool_pass_rows(T::kMaxRows, 1, s.Ho, rows_of_tiles);
   const int tiles_y = (s.Ho + th - 1) / th;
-  const long long blocks = tiles_y * rows_of_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int smem = T::vecs(th) * 16;
-  auto kern = bn_pool_fwd_kernel<kTaps, S, CG>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kern<<<static_cast<unsigned>(blocks), kFwdThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(sh), static_cast<__nv_bfloat16*>(out),
-      static_cast<uint8_t*>(taps), s, th, tiles_x, tiles_y);
-  return cudaGetLastError();
+  return launch_pool_tiles(bn_pool_fwd_kernel<kTaps, S, CG>, tiles_y * rows_of_tiles,
+                           T::vecs(th) * 16, stream, static_cast<const __nv_bfloat16*>(y),
+                           static_cast<const float*>(sc), static_cast<const float*>(sh),
+                           static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(taps), s, th,
+                           tiles_x, tiles_y);
 }
 
 template <bool kTaps, int S>
@@ -297,25 +288,18 @@ cudaError_t launch_bn_pool_fwd_s(const void* y, const void* sc, const void* sh, 
 }
 
 // (d): one block per tile of input pixels of one batch row -- TH x TW, in
-// S x S parity passes of kPassRows x kPassCols pixels -- and CG 8-channel
-// groups. kPass (pixel, group) items a pass, 4 a thread.
-constexpr int kBwdThreads = 256;
-constexpr int kPass = 1024;
-constexpr int kPassRows = 16;
-
+// S x S parity passes of kPassRows x kPassCols pixels (pool_tile.cuh) --
+// and CG 8-channel groups. 1024 (pixel, group) items a pass, 4 a thread.
 template <int S, int CG>
-struct BwdTile {
-  static constexpr int kPassCols = kPass / (kPassRows * CG);  // 64 / CG
-  static constexpr int TH = S * kPassRows, TW = S * kPassCols;
-  // the pooled cells that cover the tile: with a 1-cell halo on each side
-  // at stride 1; at stride 2 (TH, TW even) one more row and column
-  static constexpr int NR = S == 1 ? TH + 2 : kPassRows + 1;
-  static constexpr int NC = S == 1 ? TW + 2 : kPassCols + 1;
-  static constexpr int kCells = NR * NC;
+struct BwdTile : PoolTile<S, CG> {
+  using P = PoolTile<S, CG>;
+  static constexpr int kPassRows = 16;
+  static constexpr int TH = S * kPassRows;
+  static constexpr int kCells = P::cell_rows(kPassRows) * P::NC;
 };
 
 template <int S, int CG>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kPoolThreads)
 bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ sc,
                    const float* __restrict__ sh, const uint8_t* __restrict__ taps,
                    const __nv_bfloat16* __restrict__ g, float* __restrict__ dz, Shape s) {
@@ -325,14 +309,14 @@ bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
   const int chunks = s.C / (8 * CG);
   const int b = blockIdx.z / chunks, c8 = blockIdx.z % chunks * CG;
   const int h0 = blockIdx.y * T::TH, w0 = blockIdx.x * T::TW;
-  const int oh0 = S == 1 ? h0 - 1 : h0 / 2, ow0 = S == 1 ? w0 - 1 : w0 / 2;
+  const int oh0 = T::first_cell(h0), ow0 = T::first_cell(w0);
 
   // the cells' cotangents (16 bytes a group) and taps (8), zeros outside
   // the pooled grid: a zero cotangent adds +0, which leaves every sum as it
   // is (a sum from +0 is never -0), so no lookup below tests the grid
   const __nv_bfloat16* gb = g + static_cast<size_t>(b) * s.Ho * s.Wo * s.C + c8 * 8;
   const uint8_t* tb = taps + static_cast<size_t>(b) * s.Ho * s.Wo * s.C + c8 * 8;
-  for (int i = threadIdx.x; i < T::kCells * CG; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < T::kCells * CG; i += kPoolThreads) {
     const int gi = i % CG, cell = i / CG;
     const int oh = oh0 + cell / T::NC, ow = ow0 + cell % T::NC;
     const bool ok = oh >= 0 && oh < s.Ho && ow >= 0 && ow < s.Wo;
@@ -342,7 +326,7 @@ bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
   }
   cp_async_commit();
 
-  // every item of a thread has the same channel group (kBwdThreads % CG == 0)
+  // every item of a thread has the same channel group (kPoolThreads % CG == 0)
   const int gi = threadIdx.x % CG, c = (c8 + gi) * 8;
   float scv[8], shv[8];
   load_affine(sc, sh, c, scv, shv);
@@ -351,12 +335,12 @@ bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
   // stride 2 the taps whose cells can route to them are known here, 1, 2
   // or 4 of the 9, in ascending order. A pass's y vectors are loaded before
   // its cells are read (the first pass's while the cells land).
-  constexpr int kItems = kPass / kBwdThreads;
+  constexpr int kItems = T::kPassRows * 64 / kPoolThreads;
   uint4 raw[kItems];
   auto load_y = [&](int py, int px) {
 #pragma unroll
     for (int u = 0; u < kItems; ++u) {
-      const int it = threadIdx.x + u * kBwdThreads;
+      const int it = threadIdx.x + u * kPoolThreads;
       const int j = it / CG % T::kPassCols, i = it / (CG * T::kPassCols);
       const int h = h0 + S * i + py, w = w0 + S * j + px;
       if (h < s.H && w < s.W)
@@ -375,7 +359,7 @@ bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
       if (py + px > 0) load_y(py, px);
 #pragma unroll
       for (int u = 0; u < kItems; ++u) {
-        const int it = threadIdx.x + u * kBwdThreads;
+        const int it = threadIdx.x + u * kPoolThreads;
         const int j = it / CG % T::kPassCols, i = it / (CG * T::kPassCols);
         const int h = h0 + S * i + py, w = w0 + S * j + px;
         if (h >= s.H || w >= s.W) continue;
@@ -386,10 +370,8 @@ bn_pool_bwd_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict_
 #pragma unroll
           for (int kw = 0; kw < 3; ++kw) {
             if ((px + 1 - kw) % S != 0) continue;
-            // the cell (oh, ow) with oh * S + kh - 1 == h, in staged coordinates
-            const int cr = S == 1 ? i + 2 - kh : i + (py + 1 - kh) / 2;
-            const int cc = S == 1 ? j + 2 - kw : j + (px + 1 - kw) / 2;
-            const int e = ((cr * T::NC + cc) * CG + gi) * 8;
+            const int cell = T::cell_of(i, py, kh) * T::NC + T::cell_of(j, px, kw);
+            const int e = (cell * CG + gi) * 8;
             const uint2 tv = *reinterpret_cast<const uint2*>(t_s + e);
             const uint4 gv = *reinterpret_cast<const uint4*>(g_s + e);
             const uint8_t* tp = reinterpret_cast<const uint8_t*>(&tv);
@@ -420,7 +402,7 @@ cudaError_t launch_bn_pool_bwd(const void* y, const void* sc, const void* sh, co
   const long long z = static_cast<long long>(s.B) * (s.C / (8 * CG));
   if (z > 65535) return cudaErrorInvalidValue;
   const dim3 grid((s.W + T::TW - 1) / T::TW, (s.H + T::TH - 1) / T::TH, static_cast<unsigned>(z));
-  bn_pool_bwd_kernel<S, CG><<<grid, kBwdThreads, 0, stream>>>(
+  bn_pool_bwd_kernel<S, CG><<<grid, kPoolThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
       static_cast<const float*>(sh), static_cast<const uint8_t*>(taps),
       static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dz), s);
@@ -438,119 +420,230 @@ cudaError_t launch_bn_pool_bwd_s(const void* y, const void* sc, const void* sh, 
   return launch_bn_pool_bwd<S, 1>(y, sc, sh, taps, g, dz, s, stream);
 }
 
-// (f): one block per 8x8 tile of input pixels, one batch row and up to
-// kGroups 8-channel groups; a thread per (pixel, group).
-constexpr int kTile = 8;
-constexpr int kHalo = kTile + 4;   // rows (and columns) of staged a
-constexpr int kCells = kTile + 2;  // pooled cells a side that cover a tile
-constexpr int kGroups = 4;
+// (f): a block owns a tile of input pixels of one batch row and CG 8-channel
+// groups (the most, up to 8, that divide C / 8), 256 threads, in the
+// geometry of pool_tile.cuh: S x S parity passes of rows x 64 / CG pixels,
+// rows 16 at stride 1 and 8 at stride 2, halved down to 4 while the grid
+// has fewer than 1.5 blocks a SM at stride 1 (a larger tile pays its halo
+// and its phases' latency once) and than the SMs hold at once at stride 2
+// (the measured best of 1, 1.5, 2, 4 and 8 blocks a SM).
+// - One commit group of 16-byte cp.async stages the raw y of every input
+//   pixel that the covering cells' windows read (the tile with a 2-pixel
+//   halo at stride 1; 1 before and 2 after at stride 2) and the covering
+//   cells' g, zeros outside the pooled grid (as (d)).
+// - Each staged pixel is activated once, in place, to bf16 (-inf off the
+//   image), as (c) does; its LeakyReLU slope is kept beside it as a bit a
+//   channel, from z >= 0 in f32. Not from a: at z = -0 the slope is 1 and
+//   a = -0, and a tiny z < 0 (a subnormal) also activates to a = -0, with
+//   slope 0.1.
+// - Each covering (cell, group) scans its 9 taps with (c)'s scan9 into an
+//   8-byte tap vector in shared memory; then each pixel gathers its cells
+//   as (d) does (tap order, parity passes at stride 2), but with masks:
+//   per tap, the bytes of the tap vector that differ from it (a xor and
+//   an add) become 16-bit lane masks (prmt's sign mode) that zero those
+//   channels' cotangents, and all 8 are added (+0 leaves a sum as it is),
+//   about 30 instructions a tap where a compare a channel took ~40. Then
+//   the slope, and 8 f32 written as two float4. y is read once from
+//   device memory (the halo from L2), g once, dz written once.
+// - Stride and CG are template parameters, indices 32-bit from blockIdx and
+//   threadIdx, with a size_t base per batch row; the grid is one dimension,
+//   so any B x chunks launches.
+// What bounds it, as measured (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/torch_kernel_times.py): the first free-step call (stride 2,
+// 384x1280, 16 channels, 409 MB) moves ~2.2 TB/s; the proj step's 15
+// calls take 0.170-0.175 ms (bound 0.058), 10 of them small calls at a
+// launch and a block's chain of phases (4.6-9 us each). Copies of the
+// kernel without the scan, the activation or the 9-tap gather were 9%, 7%
+// and 5% faster a free step: no phase dominates; the stage-then-store
+// pattern does, as in (c). Slower: the gather with a compare a channel
+// (0.654-0.664 ms a free step against 0.598-0.603), channel groups capped
+// at 2 (0.645 against 0.602-0.607), one commit group for y and g (0.673-
+// 0.684 against 0.661).
+template <int S, int CG>
+struct RecTile : PoolTile<S, CG> {
+  using P = PoolTile<S, CG>;
+  static constexpr int kMaxRows = S == 1 ? 16 : 8;
+  // the staged input columns: the cells' windows
+  static constexpr int YC = (P::NC - 1) * S + 3;
+  // at stride 2 a staged row holds its even columns, then its odd ones, so
+  // that neighbouring cells' taps read consecutive vectors (as (c)'s)
+  static constexpr int NE = (YC + 1) / 2;
 
-__global__ void bn_pool_bwd_recompute_kernel(const __nv_bfloat16* __restrict__ y,
-                                             const float* __restrict__ sc,
-                                             const float* __restrict__ sh,
-                                             const __nv_bfloat16* __restrict__ g,
-                                             float* __restrict__ dz, Shape s, int groups) {
-  __shared__ float sa[kHalo * kHalo * kGroups * 8];                // 18,432 bytes
-  __shared__ __align__(8) uint8_t st[kCells * kCells * kGroups * 8];  // 3,200 bytes
-  const int C8 = s.C / 8;
-  const int w0 = blockIdx.x * kTile, h0 = blockIdx.y * kTile;
-  const int chunks = (C8 + groups - 1) / groups;
-  const int b = blockIdx.z / chunks, g0 = (blockIdx.z % chunks) * groups;
-
-  // 1. a on rows [h0-2, h0+kTile+2) x columns [w0-2, w0+kTile+2); -inf off
-  //    the image, so the pad never wins
-  for (int i = threadIdx.x; i < kHalo * kHalo * groups; i += blockDim.x) {
-    const int gi = i % groups, p = i / groups;
-    const int h = h0 - 2 + p / kHalo, w = w0 - 2 + p % kHalo;
-    float* dst = sa + i * 8;
-    if (g0 + gi < C8 && h >= 0 && h < s.H && w >= 0 && w < s.W) {
-      const int c = (g0 + gi) * 8;
-      float scv[8], shv[8];
-      load_affine(sc, sh, c, scv, shv);
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(y + ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c);
-      const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float z = affine(__bfloat162float(yv[j]), scv[j], shv[j]);
-        dst[j] = bf16_round(z >= 0.f ? z : __fmul_rn(z, 0.1f));
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[j] = -INFINITY;
-    }
+  __host__ __device__ static constexpr int staged_rows(int rows) {
+    return (P::cell_rows(rows) - 1) * S + 3;
   }
-  __syncthreads();
-
-  // 2. the first-max tap of every pooled cell (oh, ow) with oh*s in
-  //    [h0-1, h0+kTile] and ow*s in [w0-1, w0+kTile]: the cells that cover a
-  //    pixel of the tile; their windows lie inside the staged rows
-  const int oh_lo = max(0, (h0 - 1 + s.stride - 1) / s.stride);
-  const int ow_lo = max(0, (w0 - 1 + s.stride - 1) / s.stride);
-  const int nch = min(s.Ho - 1, (h0 + kTile) / s.stride) - oh_lo + 1;
-  const int ncw = min(s.Wo - 1, (w0 + kTile) / s.stride) - ow_lo + 1;
-  for (int i = threadIdx.x; i < nch * ncw * groups; i += blockDim.x) {
-    const int gi = i % groups, cell = i / groups;
-    const int r0 = (oh_lo + cell / ncw) * s.stride - h0 + 1;  // the window's first staged row
-    const int c0 = (ow_lo + cell % ncw) * s.stride - w0 + 1;
-    float best[8];
-    __align__(8) uint8_t tap[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      best[j] = -INFINITY;
-      tap[j] = 0;
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float* src = sa + (((r0 + k / 3) * kHalo + c0 + k % 3) * groups + gi) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (src[j] > best[j]) {
-          best[j] = src[j];
-          tap[j] = static_cast<uint8_t>(k);
-        }
-      }
-    }
-    *reinterpret_cast<uint2*>(st + i * 8) = *reinterpret_cast<const uint2*>(tap);
+  __host__ __device__ static constexpr int smem(int rows) {
+    return staged_rows(rows) * YC * CG * 17 + P::cell_rows(rows) * P::NC * CG * 24;
   }
-  __syncthreads();
-
-  // 3. each pixel sums the cotangents of the cells whose tap it is, in tap
-  //    order, times the LeakyReLU slope: (d) with the recomputed taps
-  const int gi = threadIdx.x % groups, p = threadIdx.x / groups;
-  const int h = h0 + p / kTile, w = w0 + p % kTile;
-  if (g0 + gi >= C8 || h >= s.H || w >= s.W) return;
-  const int c = (g0 + gi) * 8;
-  float acc[8] = {};
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int hn = h + 1 - k / 3, wn = w + 1 - k % 3;
-    if (hn < 0 || wn < 0 || hn % s.stride || wn % s.stride) continue;
-    const int oh = hn / s.stride, ow = wn / s.stride;
-    if (oh >= s.Ho || ow >= s.Wo) continue;
-    const uint2 tv = *reinterpret_cast<const uint2*>(
-        st + (((oh - oh_lo) * ncw + ow - ow_lo) * groups + gi) * 8);
-    const uint4 gv =
-        *reinterpret_cast<const uint4*>(g + ((static_cast<size_t>(b) * s.Ho + oh) * s.Wo + ow) * s.C + c);
-    const uint8_t* tp = reinterpret_cast<const uint8_t*>(&tv);
-    const __nv_bfloat16* gp = reinterpret_cast<const __nv_bfloat16*>(&gv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (tp[j] == k) acc[j] += __bfloat162float(gp[j]);
+  // the staged vector of (row, column) and channel group gi
+  __device__ static __forceinline__ int at(int r, int c, int gi) {
+    const int col = S == 1 ? c : (c & 1) * NE + (c >> 1);
+    return (r * YC + col) * CG + gi;
   }
+};
+
+// a0, a1 += the two bf16 of w (low half first), as f32
+__device__ __forceinline__ void add_pair(float& a0, float& a1, unsigned w) {
+  a0 += __uint_as_float(w << 16);
+  a1 += __uint_as_float(w & 0xffff0000u);
+}
+
+template <int S, int CG>
+__global__ void __launch_bounds__(kPoolThreads)
+bn_pool_bwd_recompute_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ sc,
+                             const float* __restrict__ sh, const __nv_bfloat16* __restrict__ g,
+                             float* __restrict__ dz, Shape s, int rows, int tiles_x, int tiles_y) {
+  using T = RecTile<S, CG>;
+  extern __shared__ uint4 shared[];
+  const int nvec = T::staged_rows(rows) * T::YC * CG;
+  const int ncell = T::cell_rows(rows) * T::NC * CG;
+  uint4* a_s = shared;
+  uint4* g_s = a_s + nvec;
+  uint2* t_s = reinterpret_cast<uint2*>(g_s + ncell);
+  uint8_t* pos_s = reinterpret_cast<uint8_t*>(t_s + ncell);
+
+  const PoolBlock blk(tiles_x, tiles_y, s.C / (8 * CG));
+  const int c8 = blk.chunk * CG;
+  const int h0 = blk.ty * rows * S, w0 = blk.tx * T::TW;
+  const int oh0 = T::first_cell(h0), ow0 = T::first_cell(w0);
+  const int yh0 = oh0 * S - 1, yw0 = ow0 * S - 1;  // the first staged pixel
+
+  // 1. two commit groups, 16 bytes a (pixel or cell, group): the raw y of
+  //    the cells' windows, then the cells' g, which lands during steps 2-3;
+  //    g zero outside the pooled grid: a zero cotangent adds +0, which
+  //    leaves every sum as it is (a sum from +0 is never -0), so no lookup
+  //    below tests the grid
+  const __nv_bfloat16* yb = y + static_cast<size_t>(blk.b) * s.H * s.W * s.C + c8 * 8;
+  for (int i = threadIdx.x; i < nvec; i += kPoolThreads) {
+    const int gi = i % CG, p = i / CG;
+    const int r = p / T::YC, c = p % T::YC;
+    const int h = yh0 + r, w = yw0 + c;
+    if (h >= 0 && h < s.H && w >= 0 && w < s.W)
+      cp_async16(a_s + T::at(r, c, gi), yb + static_cast<size_t>(h * s.W + w) * s.C + gi * 8, 16);
+  }
+  cp_async_commit();
+  const __nv_bfloat16* gb = g + static_cast<size_t>(blk.b) * s.Ho * s.Wo * s.C + c8 * 8;
+  for (int i = threadIdx.x; i < ncell; i += kPoolThreads) {
+    const int gi = i % CG, cell = i / CG;
+    const int oh = oh0 + cell / T::NC, ow = ow0 + cell % T::NC;
+    const bool ok = oh >= 0 && oh < s.Ho && ow >= 0 && ow < s.Wo;
+    cp_async16(g_s + i, gb + (ok ? static_cast<size_t>(oh * s.Wo + ow) * s.C + gi * 8 : 0),
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+  // every item of a thread has the same channel group (kPoolThreads % CG == 0)
+  const int gi = threadIdx.x % CG;
   float scv[8], shv[8];
-  load_affine(sc, sh, c, scv, shv);
-  const size_t at = ((static_cast<size_t>(b) * s.H + h) * s.W + w) * s.C + c;
-  const uint4 raw = *reinterpret_cast<const uint4*>(y + at);
-  const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-  __align__(16) float o[8];
+  load_affine(sc, sh, (c8 + gi) * 8, scv, shv);
+  cp_async_wait<1>();
+
+  // 2. a once a staged pixel, in place, and its slope bits (z >= 0, from
+  //    z itself); -inf off the image, as the plain version pads
+  for (int i = threadIdx.x; i < nvec; i += kPoolThreads) {
+    const int p = i / CG;
+    const int r = p / T::YC, c = p % T::YC;
+    const int h = yh0 + r, w = yw0 + c;
+    const int e = T::at(r, c, gi);
+    if (h >= 0 && h < s.H && w >= 0 && w < s.W) {
+      const uint4 raw = a_s[e];
+      unsigned nonneg = 0;
+      a_s[e] = make_uint4(activate2(raw.x, scv[0], shv[0], scv[1], shv[1], 0, nonneg),
+                          activate2(raw.y, scv[2], shv[2], scv[3], shv[3], 2, nonneg),
+                          activate2(raw.z, scv[4], shv[4], scv[5], shv[5], 4, nonneg),
+                          activate2(raw.w, scv[6], shv[6], scv[7], shv[7], 6, nonneg));
+      pos_s[e] = static_cast<uint8_t>(nonneg);
+    } else {
+      a_s[e] = make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u);  // bf16 -inf
+    }
+  }
+  __syncthreads();
+
+  // 3. each covering (cell, group) scans its 9 taps as (c) does: the taps
+  //    (c) would save. Cells outside the grid are scanned too (their windows
+  //    lie in the staged rows); their zero g makes their taps harmless
+  for (int i = threadIdx.x; i < ncell; i += kPoolThreads) {
+    const int cell = i / CG;
+    const int r = cell / T::NC * S, c = cell % T::NC * S;
+    uint4 best;
+    uint2 tap;
+    scan9<true>([&](int k) { return a_s[T::at(r + k / 3, c + k % 3, gi)]; }, best, tap);
+    t_s[i] = tap;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 4. (d)'s gather: pass (py, px) takes the pixels (h0 + S i + py, w0 + S j
+  //    + px), each the cells whose tap it is, in tap order k = 0..8, times
+  //    the slope; 8 f32 as two float4
+  float* dzb = dz + static_cast<size_t>(blk.b) * s.H * s.W * s.C + (c8 + gi) * 8;
+  const int items = rows * 64 / kPoolThreads;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    o[j] = affine(__bfloat162float(yv[j]), scv[j], shv[j]) >= 0.f ? acc[j]
-                                                                   : __fmul_rn(acc[j], 0.1f);
-  float4* dst = reinterpret_cast<float4*>(dz + at);
-  dst[0] = *reinterpret_cast<const float4*>(o);
-  dst[1] = *reinterpret_cast<const float4*>(o + 4);
+  for (int py = 0; py < S; ++py)
+#pragma unroll
+    for (int px = 0; px < S; ++px)
+#pragma unroll 2
+      for (int u = 0; u < items; ++u) {
+        const int it = threadIdx.x + u * kPoolThreads;
+        const int j = it / CG % T::kPassCols, i = it / (CG * T::kPassCols);
+        const int h = h0 + S * i + py, w = w0 + S * j + px;
+        if (h >= s.H || w >= s.W) continue;
+        float acc[8] = {};
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          if ((py + 1 - kh) % S != 0) continue;
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw) {
+            if ((px + 1 - kw) % S != 0) continue;
+            const int e = (T::cell_of(i, py, kh) * T::NC + T::cell_of(j, px, kw)) * CG + gi;
+            // the cotangents of the channels whose tap is this pixel's, the
+            // others masked to +0 (bit 7 of a byte of n: that channel's tap
+            // is not this one; taps and k are below 16, so no carry)
+            const uint2 tv = t_s[e];
+            const uint4 gv = g_s[e];
+            const unsigned k4 = 0x01010101u * (kh * 3 + kw);
+            const unsigned n0 = (tv.x ^ k4) + 0x7f7f7f7fu, n1 = (tv.y ^ k4) + 0x7f7f7f7fu;
+            add_pair(acc[0], acc[1], gv.x & ~sign_lanes(n0, 0x9988));
+            add_pair(acc[2], acc[3], gv.y & ~sign_lanes(n0, 0xbbaa));
+            add_pair(acc[4], acc[5], gv.z & ~sign_lanes(n1, 0x9988));
+            add_pair(acc[6], acc[7], gv.w & ~sign_lanes(n1, 0xbbaa));
+          }
+        }
+        const unsigned nonneg = pos_s[T::at(h - yh0, w - yw0, gi)];
+        __align__(16) float o[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) o[q] = nonneg >> q & 1u ? acc[q] : __fmul_rn(acc[q], 0.1f);
+        float4* dst = reinterpret_cast<float4*>(dzb + static_cast<size_t>(h * s.W + w) * s.C);
+        dst[0] = *reinterpret_cast<const float4*>(o);
+        dst[1] = *reinterpret_cast<const float4*>(o + 4);
+      }
+}
+
+template <int S, int CG>
+cudaError_t launch_bn_pool_bwd_recompute(const void* y, const void* sc, const void* sh,
+                                         const void* g, void* dz, const Shape& s,
+                                         cudaStream_t stream) {
+  using T = RecTile<S, CG>;
+  const int tiles_x = (s.W + T::TW - 1) / T::TW;
+  const long long rows_of_tiles = static_cast<long long>(tiles_x) * s.B * (s.C / (8 * CG));
+  const int rows = pool_pass_rows(T::kMaxRows, S, s.H, rows_of_tiles, S == 1 ? 3 : 16);
+  const int tiles_y = (s.H + S * rows - 1) / (S * rows);
+  return launch_pool_tiles(bn_pool_bwd_recompute_kernel<S, CG>, tiles_y * rows_of_tiles,
+                           T::smem(rows), stream, static_cast<const __nv_bfloat16*>(y),
+                           static_cast<const float*>(sc), static_cast<const float*>(sh),
+                           static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dz), s,
+                           rows, tiles_x, tiles_y);
+}
+
+template <int S>
+cudaError_t launch_bn_pool_bwd_recompute_s(const void* y, const void* sc, const void* sh,
+                                           const void* g, void* dz, const Shape& s,
+                                           cudaStream_t stream) {
+  // CG: the most 8-channel groups, up to 8, that divide C / 8
+  const int C8 = s.C / 8;
+  if (C8 % 8 == 0) return launch_bn_pool_bwd_recompute<S, 8>(y, sc, sh, g, dz, s, stream);
+  if (C8 % 4 == 0) return launch_bn_pool_bwd_recompute<S, 4>(y, sc, sh, g, dz, s, stream);
+  if (C8 % 2 == 0) return launch_bn_pool_bwd_recompute<S, 2>(y, sc, sh, g, dz, s, stream);
+  return launch_bn_pool_bwd_recompute<S, 1>(y, sc, sh, g, dz, s, stream);
 }
 
 inline bool valid(const Shape& s) {
@@ -599,14 +692,7 @@ extern "C" int bn_pool_bwd_recompute_launch(const void* y, const void* sc, const
                                             int stride, void* stream) {
   const Shape s{B, H, W, C, stride, (H - 1) / stride + 1, (W - 1) / stride + 1};
   if (!valid(s)) return cudaErrorInvalidValue;
-  const int C8 = C / 8, groups = C8 < kGroups ? C8 : kGroups;
-  const long long z = static_cast<long long>(B) * ((C8 + groups - 1) / groups);
-  if (z > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, static_cast<unsigned>(z));
-  bn_pool_bwd_recompute_kernel<<<grid, kTile * kTile * groups, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(sc),
-      static_cast<const float*>(sh), static_cast<const __nv_bfloat16*>(g),
-      static_cast<float*>(dz), s, groups);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return stride == 1 ? launch_bn_pool_bwd_recompute_s<1>(y, sc, sh, g, dz, s, st)
+                     : launch_bn_pool_bwd_recompute_s<2>(y, sc, sh, g, dz, s, st);
 }

@@ -66,6 +66,13 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_by
                : "memory");
 }
 
+// 4 bytes, as cp_async8
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -105,6 +112,17 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat1
                : "=r"(r[0]), "=r"(r[1])
                : "r"(a)
                : "memory");
+}
+
+// The 16-bit lanes of two channels from the bytes of x: each byte of the
+// result is bit 7 of the byte of x that sel's nibble names (prmt's sign
+// mode: 8 + byte), so sel 0x9988 gives 0xffff in the low lane where bit 7
+// of byte 0 is set and in the high lane where that of byte 1 is; 0xbbaa
+// the same from bytes 2 and 3
+__device__ __forceinline__ unsigned sign_lanes(unsigned x, unsigned sel) {
+  unsigned r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0u), "r"(sel));
+  return r;
 }
 
 // 8 consecutive bf16 from src as one 16-byte word, zeros past the first

@@ -28,7 +28,10 @@ The kernels, each replacing one TPU kernel of that module:
   (e) ``bn_pool_fwd_notap_cuda`` (``_bn_pool_kernel`` :302): (c) without the
       taps, the same kernel template;
   (f) ``bn_pool_bwd_recompute_cuda`` (``_bn_pool_bwd_kernel`` :397): (d)'s
-      dz from y, sc, sh and g alone, the taps recomputed.
+      dz from y, sc, sh and g alone, the taps recomputed: a block stages the
+      y and g that its tile of pixels needs once, activates and scans as (c)
+      and gathers as (d), the slope taken from z (not from a, which is -0
+      both at z = -0, slope 1, and at a tiny z < 0, slope 0.1).
 
 ``bn_pool`` picks the backward as JAX's ``bn_pool`` does, from
 ``I2PNET_POOL_BWD`` (read at call time): ``idx`` (the default) runs (c) and
@@ -50,7 +53,9 @@ slower. (a) replaced a block per 16x16 output tile, staged whole and then
 computed, that read its input once per 32-channel tile; (c) and (d)
 grid-stride loops over (pixel, channel group) that divided 64-bit indices
 and tested all 9 taps, (c) activating each input pixel once for each
-window that holds it. Layouts
+window that holds it; (f) a block per 8x8 pixels that staged f32
+activations, scanned them a channel at a time and read g from device
+memory once per covering tap. Layouts
 are NHWC, which has the memory of the JAX package's merged ``(B, H, W*C)``;
 weights keep the port's ``nn.Conv2d`` layout ``(cout, cin, 3, 3)`` at
 ``conv_train``. Each ``*_cuda`` wrapper takes CUDA tensors only and counts

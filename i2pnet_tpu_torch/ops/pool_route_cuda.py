@@ -12,6 +12,13 @@ ct's dtype, rounded after every add, as JAX's kernel adds.
 argtap is uint8 here (0-8, and 9 for a cell that routes nowhere), where JAX
 keeps int32: the values are the same, in a quarter of the bytes.
 
+The kernel takes kernel (d)'s layout without the slope: a block stages the
+argtap and ct of the pooled cells that cover its tile of input pixels once
+(cp.async), then each pixel gathers its candidate cells in tap order (at
+stride 2 in parity passes, 1, 2 or 4 cells a pixel) and writes its channels
+as one vector. Any C: 8 channels a thread where C and the operands'
+alignment allow, else 4, else 1 (one template).
+
 ``pool_route_cuda`` counts its launches per stride in ``launches``;
 ``pool_route`` takes the plain version for CPU tensors.
 """

@@ -522,6 +522,95 @@ def test_bn_pool_notap_and_recompute_kernels_match_plain(dev, B, H, W, C, stride
     assert ct.launches["bn_pool_bwd_recompute"] == before["bn_pool_bwd_recompute"] + 1
 
 
+# B, H, W, C, stride, kind: kernel (f)'s tiles (rows x 64 / CG pixels a
+# parity pass, 16 rows at stride 1 and 8 at stride 2, halved while the grid
+# would not fill the card) ragged both ways; H or W of 1-3 at both strides;
+# C = 8, 16, 24, 32, 40, 64 and 384 (CG 1, 2, 4 and 8; 384: 6 chunks of 8
+# groups); "ties": inputs on a half-unit grid; "halo": y < 0 and sh = 3, so
+# that a zero-filled halo (bf16(LeakyReLU(sh)) = 3) would win every edge
+# window; "zeros": y of +-0 and +-2**-133 with sc = 2**-16 and sh = -0.0,
+# so z is +-0 or the smallest f32 subnormal, every a is +-0, and only z
+# gives the slope (z = -0: 1; z = -2**-149: 0.1); the first free-step call;
+# a batch of 65535 tiny images (the old launch's limit)
+RECOMPUTE_EDGE_CASES = [
+    (1, 1, 1, 8, 1, "zeros"),
+    (1, 1, 1, 8, 2, "halo"),
+    (2, 2, 3, 24, 1, "halo"),
+    (2, 3, 2, 40, 2, "ties"),
+    (1, 3, 70, 16, 1, "halo"),
+    (1, 70, 3, 16, 2, "halo"),
+    (1, 2, 131, 384, 2, "ties"),
+    (1, 33, 65, 8, 2, "zeros"),
+    (1, 33, 65, 8, 1, "halo"),
+    (1, 65, 129, 16, 1, "ties"),
+    (2, 37, 19, 24, 2, "zeros"),
+    (1, 45, 30, 32, 1, "ties"),
+    (1, 34, 20, 64, 2, "halo"),
+    (1, 17, 23, 384, 1, "zeros"),
+    (1, 18, 11, 384, 2, "ties"),
+    (2, 31, 63, 32, 2, "normal"),
+    (8, 190, 630, 16, 1, "zeros"),
+    (8, 190, 630, 16, 2, "halo"),
+    (8, 384, 1280, 16, 2, "normal"),
+    (65535, 2, 3, 8, 1, "normal"),
+]
+
+TINY = 2.0 ** -133  # the smallest bf16 subnormal
+
+
+def _pool_operands(dev, rng, B, H, W, C, kind):
+    """y bf16, sc and sh f32 of one edge case's kind."""
+    sc = rng.uniform(0.5, 1.5, C)
+    sh = 0.1 * rng.normal(size=C)
+    if kind == "zeros":
+        y = np.array([0.0, -0.0, -TINY, TINY])[rng.integers(0, 4, size=(B, H, W, C))]
+        sc, sh = np.full(C, 2.0 ** -16), np.full(C, -0.0)
+    else:
+        y = rng.normal(size=(B, H, W, C))
+    if kind == "ties":
+        y = np.round(y * 2) / 2
+    elif kind == "halo":
+        y, sh = -np.abs(y) - 0.25, np.full(C, 3.0)
+    y = torch.from_numpy(y.astype(np.float32)).to(dev, torch.bfloat16)
+    return (y, torch.from_numpy(sc.astype(np.float32)).to(dev),
+            torch.from_numpy(sh.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("B,H,W,C,stride,kind", RECOMPUTE_EDGE_CASES)
+def test_bn_pool_recompute_kernel_edges(dev, B, H, W, C, stride, kind):
+    """(f) dz bit for bit against its plain version and against (d)'s dz on
+    (c)'s taps where the tile is ragged, the image tiny, every channel
+    tiling, ties, an sh under which an unmasked halo would win, and signed
+    zeros and subnormals where a cannot give the slope."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(B * H * W + C + stride)
+    y, sc, sh = _pool_operands(dev, rng, B, H, W, C, kind)
+    g = _bf16(dev, rng, B, (H - 1) // stride + 1, (W - 1) // stride + 1, C)
+    before = ct.launches["bn_pool_bwd_recompute"]
+    dz = ct.bn_pool_bwd_recompute_cuda(y, sc, sh, g, stride)
+    torch.cuda.synchronize()
+    assert ct.launches["bn_pool_bwd_recompute"] == before + 1
+    assert torch.equal(dz, ct.bn_pool_bwd_recompute_plain(y, sc, sh, g, stride))
+    _, taps = ct.bn_pool_fwd_cuda(y, sc, sh, stride)
+    assert torch.equal(dz, ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, stride))
+
+
+def test_bn_pool_recompute_slope_comes_from_z(dev):
+    """The slope trap: on the "zeros" inputs every a is +-0, so dz's slope
+    at a routed pixel is 1 where z = -0 and 0.1 where z = -2**-149; both
+    occur, and (f) gives each its own, bit for bit."""
+    ct = conv_train_cuda
+    rng = np.random.default_rng(9)
+    y, sc, sh = _pool_operands(dev, rng, 2, 40, 72, 16, "zeros")
+    g = torch.ones(2, 20, 36, 16, device=dev, dtype=torch.bfloat16)
+    dz = ct.bn_pool_bwd_recompute_cuda(y, sc, sh, g, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, ct.bn_pool_bwd_recompute_plain(y, sc, sh, g, 2))
+    neg_zero = (y == 0) & torch.signbit(y)
+    assert bool((dz[neg_zero] >= 1).any())  # slope 1 at z = -0
+    assert bool(((dz[y < 0] > 0) & (dz[y < 0] < 1)).any())  # 0.1 at z < 0
+
+
 # B, Ho, Wo, C, stride, ties
 ROUTE_CASES = [
     (2, 8, 16, 16, 1, True),
@@ -556,6 +645,66 @@ def test_pool_route_kernel_matches_plain(dev, B, Ho, Wo, C, stride, ties, dtype)
     assert pool_route_cuda.launches[key] == before + 1
     assert dx.dtype == dtype and dx.shape == x.shape
     assert torch.equal(dx, pool_route_cuda.pool_route_plain(argtap, ct_, stride))
+
+
+# B, Ho, Wo, C, stride: the route's tiles (16 rows x 64 / CG pixels a
+# parity pass, halved while the grid would not fill the card) ragged both
+# ways; 1x1 images; C = 3 and 12 (the 1- and 4-channel instances), 8, 16,
+# 24, 32, 64 and 384 (CG 1, 2, 4 and 8; 384: 6 chunks); 16-row passes at
+# stride 1; the first free-step call; a batch of 100000 1x1 images
+ROUTE_EDGE_CASES = [
+    (1, 1, 1, 3, 1),
+    (1, 1, 1, 12, 2),
+    (2, 5, 7, 3, 2),
+    (1, 9, 70, 12, 1),
+    (2, 19, 33, 12, 2),
+    (1, 17, 67, 8, 1),
+    (1, 17, 67, 8, 2),
+    (2, 33, 9, 24, 2),
+    (1, 20, 33, 32, 1),
+    (1, 11, 21, 64, 2),
+    (1, 3, 5, 384, 1),
+    (1, 6, 9, 384, 2),
+    (8, 190, 630, 16, 1),
+    (8, 192, 640, 16, 2),
+    (100000, 1, 1, 8, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Ho,Wo,C,stride", ROUTE_EDGE_CASES)
+def test_pool_route_kernel_edges(dev, B, Ho, Wo, C, stride, dtype):
+    """dx bit for bit against the plain version where the tile is ragged,
+    the image tiny, every channel tiling and the narrow instances; argtap
+    from the pool of a tied input, 9 on the first cell row and the last
+    cell column."""
+    rng = np.random.default_rng(B + Ho * Wo + C + stride)
+    x = np.round(rng.normal(size=(B, Ho * stride, Wo * stride, C)) * 2) / 2
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    y = torch.nn.functional.max_pool2d(x.float().permute(0, 3, 1, 2), 3, stride, 1)
+    argtap = pool_route_cuda.pool3_argtap(x, y.permute(0, 2, 3, 1).to(dtype), stride)
+    argtap[:, 0] = 9
+    argtap[:, :, -1] = 9
+    ct_ = torch.from_numpy(rng.normal(size=(B, Ho, Wo, C)).astype(np.float32)).to(dev, dtype)
+    dx = pool_route_cuda.pool_route_cuda(argtap, ct_, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, pool_route_cuda.pool_route_plain(argtap, ct_, stride))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_route_kernel_on_unaligned_operands(dev, dtype):
+    """Contiguous operands that start one element past an allocation (no
+    16-byte vector fits them): the launch takes the narrow instance, bit
+    for bit against the plain version."""
+    rng = np.random.default_rng(11)
+    B, Ho, Wo, C, n = 2, 9, 13, 16, 2 * 9 * 13 * 16
+    at_flat = torch.from_numpy(rng.integers(0, 10, size=n + 1).astype(np.uint8)).to(dev)
+    ct_flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32)).to(dev, dtype)
+    argtap, ct_ = at_flat[1:].view(B, Ho, Wo, C), ct_flat[1:].view(B, Ho, Wo, C)
+    for stride in (1, 2):
+        dx = pool_route_cuda.pool_route_cuda(argtap, ct_, stride)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, pool_route_cuda.pool_route_plain(argtap, ct_, stride))
 
 
 def test_pool_kernels_reject_what_they_cannot_take(dev):

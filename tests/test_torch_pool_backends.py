@@ -102,7 +102,49 @@ def test_bn_pool_backend_matches_jax(B, H, W, cout, stride, ties, bwd, monkeypat
     routing, summed in tap order in f32), within one bf16 ulp (2**-7
     relative) on native and sas (the same routed terms summed in another
     f32 order); dsc and dsh within 1e-4."""
-    y, sc, sh, g = _bn_inputs(B, H, W, cout, stride, ties, bwd)
+    _check_bn_pool_against_jax(*_bn_inputs(B, H, W, cout, stride, ties, bwd), stride, bwd,
+                               monkeypatch)
+
+
+# the edge inputs of the card tests of kernel (f): "halo", y < 0 and sh = 3,
+# so that a zero-filled halo (bf16(LeakyReLU(sh)) = 3) would win every edge
+# window; "zeros", half the y +-0 and sh = -0.0, so that z = -0 (slope 1)
+# where a = -0. The card test's subnormal z (slope 0.1 where a = -0 too)
+# stays on the card: XLA's CPU backend flushes f32 subnormals to zero.
+BN_EDGE_CASES = [
+    (2, 16, 32, 8, 1, "halo"),
+    (2, 16, 32, 8, 2, "halo"),
+    (1, 16, 64, 32, 2, "halo"),
+    (2, 16, 32, 8, 1, "zeros"),
+    (2, 16, 32, 8, 2, "zeros"),
+    (1, 16, 64, 32, 1, "zeros"),
+]
+
+
+@pytest.mark.parametrize("bwd", ["pallas", "idx"])
+@pytest.mark.parametrize("B,H,W,cout,stride,kind", BN_EDGE_CASES)
+def test_bn_pool_backend_edges_match_jax(B, H, W, cout, stride, kind, bwd, monkeypatch):
+    """The first-max backends on the edge inputs, at the bars of
+    test_bn_pool_backend_matches_jax: out and dy exactly."""
+    y, sc, sh, g = _bn_inputs(B, H, W, cout, stride, False, bwd)
+    rng = np.random.default_rng(2)
+    if kind == "halo":
+        y, sh = _bf(-np.abs(y) - 0.25), np.full(cout, 3.0, np.float32)
+    else:
+        y = np.where(rng.random(y.shape) < 0.5, np.where(rng.random(y.shape) < 0.5, 0.0, -0.0), y)
+        y, sh = y.astype(np.float32), np.full(cout, -0.0, np.float32)
+    out = _check_bn_pool_against_jax(y, sc, sh, g, stride, bwd, monkeypatch)
+    if kind == "halo":  # every maximum below 3: no halo cell won
+        assert float(out.float().max()) < 3.0
+    else:  # a = -0 with z = -0 wins windows: the slope trap is exercised
+        assert bool(((out == 0) & torch.signbit(out)).any())
+
+
+def _check_bn_pool_against_jax(y, sc, sh, g, stride, bwd, monkeypatch):
+    """out, dy, dsc and dsh of the port's bn_pool on one backend against
+    JAX's (interpret mode), and the plain versions of kernels (e) and (f)
+    against (c)'s out and (d)'s dz; returns out."""
+    B, H, W, cout = y.shape
     ym = jnp.asarray(y.reshape(B, H, W * cout), jnp.bfloat16)
     gm = jnp.asarray(g.reshape(B, H // stride, -1))
 
@@ -134,6 +176,7 @@ def test_bn_pool_backend_matches_jax(B, H, W, cout, stride, ties, bwd, monkeypat
     assert torch.equal(ct.bn_pool_fwd_notap_plain(yb, sct, sht, stride), out_idx)
     assert torch.equal(ct.bn_pool_bwd_recompute_plain(yb, sct, sht, gb, stride),
                        ct.bn_pool_bwd_plain(yb, sct, sht, taps, gb, stride))
+    return out.detach()
 
 
 @pytest.mark.parametrize("bwd", ["idx", "pallas", "native", "sas"])
@@ -220,6 +263,23 @@ def test_max_pool_routed_matches_jax(H, W, s, kind, monkeypatch):
             np.testing.assert_array_equal(n(dx), n(dx_ref))
         else:
             np.testing.assert_allclose(n(dx), n(dx_ref), rtol=2**-7, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["normal", "quarters"])
+@pytest.mark.parametrize("C", [3, 12])
+@pytest.mark.parametrize("s", [1, 2])
+def test_max_pool_routed_matches_jax_at_narrow_widths(s, C, kind, monkeypatch):
+    """I2PNET_POOL_PALLAS=1 at the widths of the route kernel's narrow
+    instances (3 and 12 channels: no 8-channel vector fits), in f32 and
+    bf16, at the bars of test_max_pool_routed_matches_jax: exact."""
+    x, ct_ = _pool_case(16, 24, s, kind, C=C, seed=C)
+    for dtype in (torch.float32, BF):
+        before = _counts()
+        y, dx, y_ref, dx_ref = _grads(x, ct_, s, dtype, "I2PNET_POOL_PALLAS", monkeypatch,
+                                      jax_max_pool_3x3)
+        assert _counts() == before
+        np.testing.assert_array_equal(n(y), n(y_ref))
+        np.testing.assert_array_equal(n(dx), n(dx_ref))
 
 
 def test_pool_route_plain_routes_each_cotangent_once():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's FPS, conv_dw, encoder-block, cv1, train-conv, idx
-pool-backward and -forward and window-select kernels of one source tree,
-per call shape.
+"""Time the port's FPS, conv_dw, encoder-block, cv1, train-conv, pool
+(idx backward and forward, recompute backward, route) and window-select
+kernels of one source tree, per call shape.
 
     python3 tools/torch_kernel_times.py [--tree DIR] [--label NAME] [--only PART,...]
 
@@ -39,6 +39,15 @@ bounds and ``F.max_pool2d(..., return_indices=True)`` on the activated
 tensor (a yardstick of the pool's share, not the same function: no affine,
 no activation, int64 indices), and whether out and taps equal the plain
 version bit for bit.
+recompute: kernel (f) (``bn_pool_bwd_recompute_cuda``) at the 15 calls of
+each step, on random bf16 operands, beside its bound and kernel (d) on the
+taps kernel (c) finds for the same call, and whether dz equals the plain
+version and (d)'s bit for bit.
+route: the route kernel (``pool_route_cuda``) at the 15 pool calls of each
+step's native chain (bf16, the chain's dtype under bf16 compute; argtap
+from ``pool3_argtap`` of a random input), beside its bound and
+``max_pool2d_with_indices_backward`` on the same routing, and whether dx
+equals the plain version; the stride-1 and stride-2 calls summed apart.
 select: the window select at the 5 calls of one proj eval forward
 (``chip_smoke.py``'s model and inputs, the calls captured), each beside its
 bound (this run's data) and whether m equals the plain version; then each
@@ -49,7 +58,8 @@ launch plans (``conv3x3_launch_plan``; trees that have it), the plan's
 channel tile and slab width varied, and the default plan's rows cut for
 1, 2 and 4 waves of blocks.
 Each time: a CUDA graph of one call replayed, median of 5 after a warm-up;
-for poolfwd and select also ``ms_x10``, ten calls in one graph, per call.
+for poolfwd, recompute, route and select also ``ms_x10``, ten calls in one
+graph, per call.
 Prints one JSON line.
 """
 
@@ -276,6 +286,57 @@ def time_pool(torch, ct, dev, H, W):
     return rows, fns
 
 
+def time_recompute(torch, ct, dev, H, W):
+    """Kernel (f) at each bn_pool call of a train step at H x W, beside (d)
+    on (c)'s taps for the same call."""
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, fns = [], {"f": [], "d": []}
+    for B, h, w, _, cout, s, _ in step_convs(8, H, W):
+        y = torch.randn(B, h, w, cout, device=dev, generator=gen).to(torch.bfloat16)
+        sc = torch.rand(cout, device=dev, generator=gen) + 0.5
+        sh = 0.1 * torch.randn(cout, device=dev, generator=gen)
+        _, taps = ct.bn_pool_fwd_cuda(y, sc, sh, s)
+        g = torch.randn(*taps.shape, device=dev, generator=gen).to(torch.bfloat16)
+        f = lambda y=y, sc=sc, sh=sh, g=g, s=s: ct.bn_pool_bwd_recompute_cuda(y, sc, sh, g, s)
+        d = lambda y=y, sc=sc, sh=sh, taps=taps, g=g, s=s: ct.bn_pool_bwd_cuda(y, sc, sh, taps, g, s)
+        dz = f()
+        exact = torch.equal(dz, ct.bn_pool_bwd_recompute_plain(y, sc, sh, g, s))
+        nbytes = sum(t.numel() * t.element_size() for t in (y, sc, sh, g, dz))
+        rows.append({"shape": [B, h, w, cout, s], "ms": replay_ms(f), "ms_x10": in_graph_ms(f),
+                     "idx_bwd_ms": replay_ms(d), "bound_ms": bound_ms(nbytes, 0.0),
+                     "exact": bool(exact), "equals_idx": bool(torch.equal(dz, d()))})
+        fns["f"].append(f)
+        fns["d"].append(d)
+    return rows, fns
+
+
+def time_route(torch, pool_route_cuda, dev, H, W):
+    """The route kernel at each pool call of a train step's native chain at
+    H x W (bf16, the chain's dtype under bf16 compute), beside
+    max_pool2d_with_indices_backward on the same routing."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, fns = [], []
+    for B, h, w, _, cout, s, _ in step_convs(8, H, W):
+        x = torch.randn(B, h, w, cout, device=dev, generator=gen).to(torch.bfloat16)
+        y = F.max_pool2d(x.float().permute(0, 3, 1, 2), 3, s, 1).permute(0, 2, 3, 1)
+        argtap = pool_route_cuda.pool3_argtap(x, y.to(torch.bfloat16), s)
+        ct_ = torch.randn(*argtap.shape, device=dev, generator=gen).to(torch.bfloat16)
+        fn = lambda a=argtap, c=ct_, s=s: pool_route_cuda.pool_route_cuda(a, c, s)
+        dx = fn()
+        exact = torch.equal(dx, pool_route_cuda.pool_route_plain(argtap, ct_, s))
+        gn, xn, idx = route_indices(torch, argtap, ct_, s, h, w)
+        lib = lambda gn=gn, xn=xn, idx=idx, s=s: torch.ops.aten.max_pool2d_with_indices_backward(
+            gn, xn, [3, 3], [s, s], [1, 1], [1, 1], False, idx)
+        nbytes = sum(t.numel() * t.element_size() for t in (argtap, ct_, dx))
+        rows.append({"shape": [B, h, w, cout, s], "ms": replay_ms(fn), "ms_x10": in_graph_ms(fn),
+                     "library_ms": replay_ms(lib), "bound_ms": bound_ms(nbytes, 0.0),
+                     "exact": bool(exact)})
+        fns.append(fn)
+    return rows, fns
+
+
 def time_pool_fwd(torch, ct, dev, H, W):
     """Kernels (c) and (e) at each bn_pool call of a train step at H x W."""
     import torch.nn.functional as F
@@ -437,7 +498,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--only", default="fps,dw,block,cv1,conv,pool,poolfwd,select",
                     help="comma-separated parts to time (fps, dw, block, cv1, conv, pool, "
-                         "poolfwd, select, sweep)")
+                         "poolfwd, recompute, route, select, sweep)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -478,6 +539,28 @@ def main() -> int:
         result["cv1"] = time_cv1(torch, cv_cuda, dev)
         total["cv1_ms"] = result["cv1"]["ms"]
     for key, (H, W) in (("free", (384, 1280)), ("proj", (160, 512))):
+        if "recompute" in parts:
+            rows, fns = time_recompute(torch, conv_train_cuda, dev, H, W)
+            result[f"recompute_{key}"] = rows
+            for col in ("ms", "ms_x10", "idx_bwd_ms", "bound_ms"):
+                total[f"recompute_{key}_{col}"] = sum(r[col] for r in rows)
+            for kind, kfns in fns.items():
+                total[f"recompute_{key}_{kind}_one_graph_ms"] = replay_ms(
+                    lambda: [f() for f in kfns])
+            total[f"recompute_{key}_exact"] = all(r["exact"] and r["equals_idx"] for r in rows)
+        if "route" in parts:
+            from i2pnet_tpu_torch.ops import pool_route_cuda
+
+            rows, fns = time_route(torch, pool_route_cuda, dev, H, W)
+            result[f"route_{key}"] = rows
+            for stride in (1, 2):
+                sel = [r for r in rows if r["shape"][4] == stride]
+                for col in ("ms", "ms_x10", "library_ms", "bound_ms"):
+                    total[f"route_{key}_s{stride}_{col}"] = sum(r[col] for r in sel)
+                sel_fns = [f for f, r in zip(fns, rows) if r["shape"][4] == stride]
+                total[f"route_{key}_s{stride}_one_graph_ms"] = replay_ms(
+                    lambda: [f() for f in sel_fns])
+            total[f"route_{key}_exact"] = all(r["exact"] for r in rows)
         if "conv" in parts:
             rows, fns = time_conv(torch, conv_train_cuda, dev, H, W)
             result[f"conv_{key}"] = rows

@@ -8,8 +8,10 @@ train mode with dropout, loss, backward, Adam), both with the shipped
 config in bf16 at B=8, a 384x1280 image and 8192 LiDAR points; and the
 projection-family I2PNetProj eval forward and train step, the shipped proj
 config in bf16 at B=8, a 160x512 image and 150,000 raw points a row
-(120,000 real, the tail zero), projected to a 64x1800 range image. Phases,
-each raising on failure:
+(120,000 real, the tail zero), projected to a 64x1800 range image; then the
+evaluation entry point, both families' 2-stage cascades through
+``evaluate_torch.py`` and ``Evaluator`` at the same shapes. Phases, each
+raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -82,6 +84,23 @@ each raising on failure:
    path), each equal to its plain version and timed; the bf16 encoder
    stage with 12 output channels at eval and in training, which the gates
    send to the native chain.
+16. the evaluation CLI: a synthetic KITTI large-range test tree on disk
+   (sequences 7 and 8, 13 frames each: (7, 120000) f32 scans, which the
+   loader pads to 150,000 points, and (376, 1241, 3) uint8 images), two
+   cascade stages of the shipped proj config with different seeded weights
+   saved through the port's ``CheckpointManager``, and
+   ``evaluate_torch.main`` in bf16 at B=8 (batches of 8, 8, 8 and 2); checks
+   the summary (finite, count 26), prediction.txt (26 sections, parsed by
+   the port's analysis), the metrics npz (``recall_analysis``), the native
+   IO library, the launches (select 5 and encoder block 15 a stage and
+   batch, nothing else), every select and encoder-block call against its
+   plain version (the bars of phase 3), and the first batch's cascade
+   against a hand-composed pair of forwards, bit for bit; prints the
+   evaluator's mean_time_s / mean_fps and the host's time to load a sample;
+17. the free-point ``Evaluator`` on an in-memory dataset (B=8, 384x1280,
+   8192 points, 3 batches, seeded decalibrations), two stages of the
+   shipped config in bf16 through the checkpoints: the same checks, with
+   FPS 4, encoder block 15 and cv1 1 a stage and batch.
 
 Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
 its conv, and phase 4 gives cv1's TFLOP/s.
@@ -705,6 +724,176 @@ def past_limits(launches_of, fps_cuda, select_cuda, dev, card) -> None:
           "no kernel launched, finite outputs and gradients")
 
 
+# phases 16-17: the evaluator, a 2-stage cascade restored through the
+# port's checkpoints. The KITTI odometry calibration of sequences 00-02
+# stands in for the synthetic tree's calib.txt.
+EVAL_STAGES, EVAL_FRAMES, EVAL_SCAN_POINTS = 2, 13, 120000
+CLI_BATCHES, FREE_EVAL_BATCHES = 4, 3
+CLI_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * CLI_BATCHES,
+                    select=5 * EVAL_STAGES * CLI_BATCHES)
+FREE_EVALUATOR_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * FREE_EVAL_BATCHES,
+                               encoder_block=15 * EVAL_STAGES * FREE_EVAL_BATCHES,
+                               cv1=EVAL_STAGES * FREE_EVAL_BATCHES)
+KITTI_CALIB = (
+    "P2: 7.188560e+02 0.000000e+00 6.071928e+02 4.538225e+01 0.000000e+00 7.188560e+02 "
+    "1.852157e+02 -1.130887e-01 0.000000e+00 0.000000e+00 1.000000e+00 3.779761e-03\n"
+    "Tr: 4.276802e-04 -9.999672e-01 -8.084491e-03 -1.198459e-02 -7.210626e-03 8.081198e-03 "
+    "-9.999413e-01 -5.403984e-02 9.999738e-01 4.859485e-04 -7.206933e-03 -2.921968e-01\n"
+)
+
+
+def write_large_range_tree(root: str) -> None:
+    """The KITTI large-range loader's test split on disk: sequences 7 and 8,
+    EVAL_FRAMES frames each; a scan is (7, EVAL_SCAN_POINTS) f32 (xyz of a
+    spinning LiDAR's returns 2-60 m out, intensity, unit normals), an image
+    (376, 1241, 3) uint8."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    for seq in (7, 8):
+        seq_dir = os.path.join(root, "kitti_processed_DeepI2P", "data_odometry_velodyne",
+                               "sequences", "%02d" % seq)
+        for sub in ("voxel0.1-SNr0.6", "image_2_npy"):
+            os.makedirs(os.path.join(seq_dir, sub))
+        with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+            f.write(KITTI_CALIB)
+        for fi in range(EVAL_FRAMES):
+            n = EVAL_SCAN_POINTS
+            r = rng.uniform(2.0, 60.0, n)
+            az = rng.uniform(-np.pi, np.pi, n)
+            el = rng.uniform(np.radians(-25.0), np.radians(3.0), n)
+            normals = rng.normal(size=(3, n))
+            normals /= np.linalg.norm(normals, axis=0)
+            scan = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                             r * np.sin(el), rng.uniform(0, 1, n), *normals]).astype(np.float32)
+            np.save(os.path.join(seq_dir, "voxel0.1-SNr0.6", "%06d.npy" % fi), scan)
+            img = rng.integers(0, 256, size=(376, 1241, 3), dtype=np.uint8)
+            np.save(os.path.join(seq_dir, "image_2_npy", "%06d.npy" % fi), img)
+
+
+class FreeEvalDataset:
+    """In-memory samples with the KITTI CMR loader's keys at the shipped
+    free-point shapes: a cloud decalibrated by a pose drawn from a seeded
+    numpy generator (+-1 m, +-0.2 rad), its inverse the ground truth."""
+
+    def __init__(self, count: int, points: int):
+        import numpy as np
+
+        from i2pnet_tpu_torch.data import transforms as T
+
+        rng = np.random.default_rng(SEED)
+        k = np.array([[718.0, 0, IMG_W / 2], [0, 718.0, IMG_H / 2], [0, 0, 1]], np.float32)
+        self.samples = []
+        for i in range(count):
+            raw = rng.uniform(-10, 10, size=(points, 3)).astype(np.float32) + [0, 0, 20]
+            Pr = T.generate_random_transform(rng, 1.0, 1.0, 1.0, 0.2, 0.2, 0.2, clip_tz=False)
+            q, t = T.decalib_ground_truth(np.linalg.inv(Pr)[:3])
+            lidar = (raw @ Pr[:3, :3].T + Pr[:3, 3]).astype(np.float32)
+            self.samples.append(dict(
+                rgb=rng.normal(size=(IMG_H, IMG_W, 3)).astype(np.float32), lidar=lidar,
+                lidar_feats=lidar, raw_point_xyz=raw.astype(np.float32), init_intrinsic=k,
+                init_extrinsic=Pr[:3].astype(np.float32), decalib_real_gt=q,
+                decalib_dual_gt=t, path_info="00 %06d %06d" % (i, i)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def collate_first(ds):
+    """The first batch of `ds`, as the loader collates it."""
+    from i2pnet_tpu_torch.data import collate
+
+    return collate([ds[i] for i in range(BATCH)])
+
+
+def save_stages(models, root: str):
+    """Each stage's weights as its log dir's best snapshot, through the
+    port's CheckpointManager; returns the log dirs."""
+    from i2pnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    dirs = []
+    for i, m in enumerate(models):
+        d = os.path.join(root, f"stage_{i}")
+        CheckpointManager(d).save_best(
+            "model_rotation_best", {"model": m.state_dict()})
+        dirs.append(d)
+    return dirs
+
+
+class CascadeRecorder:
+    """Keeps every out3 the Evaluator's cascade returns while active."""
+
+    def __enter__(self):
+        from i2pnet_tpu_torch.eval.evaluator import Evaluator
+
+        self.cls, self.real, self.outs = Evaluator, Evaluator.cascade, []
+        recorder = self
+
+        def cascade(self, mb, bi=0):
+            out = recorder.real(self, mb, bi)
+            recorder.outs.append(out.clone())
+            return out
+
+        Evaluator.cascade = cascade
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.cascade = self.real
+
+
+def check_cascade(models, batch, proj: bool, recorded, label: str) -> None:
+    """The first batch's cascade equals a hand-composed pair of forwards:
+    stage 2 sees the cloud warped by stage 1's pose, the poses compose."""
+    import torch
+
+    from i2pnet_tpu_torch.ops import quaternion as Q
+
+    rgb, lidar, intr = batch["rgb"], batch["lidar"], batch["init_intrinsic"]
+    raw, feats = batch["raw_point_xyz"], batch.get("lidar_feats")
+
+    def forward(m, cloud):
+        if proj:
+            return m(rgb, cloud, raw, intr, lidar_feature=feats)["out3"]
+        return m(rgb, cloud, intr, lidar_feature=feats, raw_xyz=raw)["out3"]
+
+    with torch.no_grad():
+        o1 = forward(models[0], lidar)
+        o2 = forward(models[1], Q.warp_points(lidar, o1[:, :4], o1[:, 4:]))
+        q, t = Q.compose_pose(o2[:, :4], o2[:, 4:], o1[:, :4], o1[:, 4:])
+    check(torch.equal(torch.cat([q, t], 1), recorded),
+          f"{label}: the first batch's cascade differs from the hand-composed pair of forwards")
+    print(f"{label}: the first batch's cascade equals the hand-composed pair of forwards, "
+          f"bit for bit")
+
+
+def check_eval_outputs(summary, log_dir: str, count: int, label: str) -> None:
+    """A finite summary of `count` pairs; prediction.txt with one section a
+    pair, parsed by the port's analysis; the metrics npz read back."""
+    import glob
+    import math
+
+    from i2pnet_tpu_torch.eval import SECTION, parse_prediction_file, recall_analysis
+
+    finite = [k for k, v in summary.items() if k != "timing_includes_compile"
+              and not math.isfinite(float(v))]
+    check(not finite and summary["count"] == count and not summary["timing_includes_compile"],
+          f"{label}: summary {summary}")
+    path = os.path.join(log_dir, "prediction.txt")
+    with open(path) as f:
+        sections = sum(line.startswith(SECTION) for line in f)
+    parsed = parse_prediction_file(path)
+    check(sections == count and parsed["pred"].shape == (count, 3, 4),
+          f"{label}: prediction.txt has {sections} sections")
+    npz = glob.glob(os.path.join(log_dir, "metrics_*.npz"))
+    check(len(npz) == 1 and recall_analysis(npz[0])["count"] == count, f"{label}: metrics npz")
+    print(f"{label}: summary finite, count {count}; prediction.txt {sections} sections, parsed; "
+          f"metrics npz read back; rre_mean {summary['rre_mean']:.3f} deg, rte_mean "
+          f"{summary['rte_mean']:.3f} m")
+
+
 def main() -> int:
     import torch
 
@@ -1190,6 +1379,88 @@ def main() -> int:
                                    errors[k["name"]], route_calls[k["name"]], card))
     # --- phase 15: shapes past the kernels' former limits
     past_limits(launches_of, fps_cuda, select_cuda, dev, card)
+
+    # --- phase 16: proj evaluation through the CLI, from a tree on disk
+    import shutil
+    import tempfile
+
+    import evaluate_torch
+    from i2pnet_tpu_torch.data import BatchLoader, KittiLargeRangeDataset, native_io
+    from i2pnet_tpu_torch.data.pipeline import prefetch_to_device
+    from i2pnet_tpu_torch.eval import Evaluator
+    from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
+
+    del ptmodel, pstate
+    t_eval = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        check(native_io.available(), "the native IO library did not build")
+        t0 = time.perf_counter()
+        write_large_range_tree(os.path.join(work, "data"))
+        print(f"phase 16: wrote the large-range test tree ({2 * EVAL_FRAMES} frames) in "
+              f"{time.perf_counter() - t0:.1f} s; native IO library: {native_io._lib_path().name}")
+        stages = [init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED + i)).eval()
+                  for i in range(EVAL_STAGES)]
+        stage_dirs = save_stages(stages, work)
+        argv = ["--root_path", os.path.join(work, "data"), "--model_dir", *stage_dirs,
+                "--compute_dtype", "bfloat16", "--batch_size", str(BATCH),
+                "--log_dir", os.path.join(work, "cli_eval")]
+        captures = {k["name"]: Capture(k["module"], k["fn"]) for k in (block, select)}
+        with captures["encoder_block"], captures["select"], CascadeRecorder() as rec:
+            summary = launches_of("proj_evaluate_cli", CLI_LAUNCHES,
+                                  lambda: evaluate_torch.main(argv))
+        check_eval_outputs(summary, os.path.join(work, "cli_eval"), 2 * EVAL_FRAMES, "phase 16")
+        with torch.no_grad():
+            eval_kernel_error("select", select_cuda.selection_multiplicity_plain,
+                              captures["select"].calls)
+            eval_kernel_error("encoder_block", conv_cuda.conv_block_plain,
+                              captures["encoder_block"].calls)
+        del captures
+        ds = KittiLargeRangeDataset(os.path.join(work, "data"), mode="test", seed=0)
+        t0 = time.perf_counter()
+        first = collate_first(ds)
+        load_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+        first = next(prefetch_to_device([first], dev))
+        for m, d in zip(stages, stage_dirs):
+            m.load_state_dict(restore_inference_variables(d, m), strict=True)
+        check_cascade(stages, first, True, rec.outs[0], "phase 16")
+        print(f"phase 16: evaluate_torch.py, a {EVAL_STAGES}-stage proj cascade in bf16 at "
+              f"B={BATCH}: mean_time_s {summary['mean_time_s']:.6f}, mean_fps "
+              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window); the "
+              f"host loads a sample in {load_ms:.1f} ms (one thread) on {card}")
+        del stages, first, rec
+
+        # --- phase 17: free-point evaluation through the Evaluator
+        ds = FreeEvalDataset(FREE_EVAL_BATCHES * BATCH, cfg.lidar_in_points)
+        stages = [init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED + i)).eval()
+                  for i in range(EVAL_STAGES)]
+        stage_dirs = save_stages(stages, os.path.join(work, "free"))
+        models = []
+        for d in stage_dirs:
+            m = I2PNet(cfg)
+            m.load_state_dict(restore_inference_variables(d, m), strict=True)
+            models.append(m)
+        evaluator = Evaluator(models, cfg, proj=False, log_dir=os.path.join(work, "free_eval"))
+        captures = {k["name"]: Capture(k["module"], k["fn"]) for k in eval_kernels}
+        with captures["fps"], captures["encoder_block"], captures["cv1"], CascadeRecorder() as rec:
+            summary = launches_of("free_evaluator", FREE_EVALUATOR_LAUNCHES,
+                                  lambda: evaluator.validate(
+                                      BatchLoader(ds, BATCH, shuffle=False, drop_last=False)))
+        check_eval_outputs(summary, os.path.join(work, "free_eval"), len(ds), "phase 17")
+        with torch.no_grad():
+            for k in eval_kernels:
+                eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                  captures[k["name"]].calls)
+        del captures
+        first = next(prefetch_to_device([collate_first(ds)], dev))
+        check_cascade(models, first, False, rec.outs[0], "phase 17")
+        print(f"phase 17: Evaluator, a {EVAL_STAGES}-stage free-point cascade in bf16 at "
+              f"B={BATCH}: mean_time_s {summary['mean_time_s']:.6f}, mean_fps "
+              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window) on {card}")
+        del stages, models, evaluator, first, rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phases 16-17: {time.perf_counter() - t_eval:.1f} s")
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

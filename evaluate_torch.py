@@ -1,0 +1,130 @@
+#!/usr/bin/env python
+"""Evaluation CLI of the PyTorch / CUDA port: the twin of ``evaluate.py``,
+with the same flags and defaults and ``--device``.
+
+Loads the stages' checkpoints (a cascade when several --model_dir are
+given; each a log dir holding the port's checkpoints under ``torch/``, see
+``i2pnet_tpu_torch/train/checkpoint.py``; a JAX run is converted with
+``tools/jax_ckpt_to_torch.py``), runs the KITTI large-range test protocol
+(``--dataset kd_corr_nolidar``), and writes log_test.txt, prediction.txt
+and a metrics npz under --log_dir in the JAX package's formats; --analyze
+prints recall stats from the npz. Runs on the CUDA card unless
+``--device cpu`` is given.
+
+    python3 evaluate_torch.py --model_dir runA runB --compute_dtype bfloat16
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+
+_ITEM5 = "ROADMAP queue 1, item 5"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--dataset", default="kd_corr_nolidar",
+                   choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
+                            "kd_corr_nolidar", "nus_corr_nolidar"],
+                   help="only kd_corr_nolidar is ported; the others raise "
+                        f"NotImplementedError ({_ITEM5})")
+    p.add_argument("--network", default="i2pnet_proj",
+                   choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
+    p.add_argument("--root_path", default="/dataset")
+    p.add_argument("--model_dir", nargs="+", required=True,
+                   help="trainer log dirs; several => cascade")
+    p.add_argument("--best", default="model_rotation_best",
+                   help="best-snapshot name, or 'latest' for the newest "
+                        "epoch checkpoint")
+    p.add_argument("--log_dir", default="info_test")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tag", default="")
+    p.add_argument("--test_rt", default=None,
+                   help="CSV of fixed test decalibrations; only kd_cmr_snr "
+                        f"reads it, which is not ported ({_ITEM5})")
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="check every stage's out3/out4 with torch.isfinite "
+                        "and raise on the first non-finite batch")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--analyze", action="store_true")
+    p.add_argument("--vis_rate", type=int, default=0,
+                   help=f"projection overlays; not ported ({_ITEM5}): only 0")
+    p.add_argument("--efgh", action="store_true",
+                   help="online-calibration EFGH variant; not ported "
+                        "(ROADMAP queue 1, item 7)")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel eval fan-out; not ported (ROADMAP "
+                        "queue 1, item 9)")
+    p.add_argument("--knn_mode", default="exact", choices=["exact", "approx"],
+                   help="level-1 KNN at eval. The port's KNN is always "
+                        "exact, and 'approx' runs it too: the JAX package "
+                        "approximates it only on the TPU, and off the TPU "
+                        "computes the exact KNN as well")
+    p.add_argument("--device", default="cuda",
+                   help="the device the models run on (cuda, or cpu)")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    if args.dataset != "kd_corr_nolidar":
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is "
+            f"not ported ({_ITEM5})")
+    if args.test_rt:
+        raise NotImplementedError(f"--test_rt is read only by kd_cmr_snr ({_ITEM5})")
+    if args.vis_rate > 0:
+        raise NotImplementedError(f"--vis_rate: eval/visualize.py is not ported ({_ITEM5})")
+    if args.efgh:
+        raise NotImplementedError("--efgh: the efgh branch is not ported (ROADMAP queue 1, item 7)")
+    if args.dp:
+        raise NotImplementedError("--dp: the data-parallel fan-out is not ported "
+                                  "(ROADMAP queue 1, item 9)")
+
+
+def main(argv=None):
+    """Run the protocol; returns the summary dict."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    from i2pnet_tpu_torch.cli import build
+    from i2pnet_tpu_torch.data import BatchLoader, KittiLargeRangeDataset
+    from i2pnet_tpu_torch.eval import Evaluator, recall_analysis
+    from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
+    from i2pnet_tpu_torch.utils.seeding import set_seed
+
+    set_seed(args.seed)
+    models = []
+    for mdir in args.model_dir:
+        model, cfg, proj = build(args)
+        model.load_state_dict(restore_inference_variables(mdir, model, best=args.best),
+                              strict=True)
+        models.append(model)
+
+    ds_args = dict(mode="test", seed=args.seed)
+    if args.tiny:
+        ds_args.update(img_H=64, img_W=128, sample_point=2048)
+    test_ds = KittiLargeRangeDataset(args.root_path, **ds_args)
+    loader = BatchLoader(test_ds, args.batch_size, shuffle=False, drop_last=False)
+    evaluator = Evaluator(models, cfg, proj=proj, log_dir=args.log_dir, tag=args.tag,
+                          device=args.device, debug_nans=args.debug_nans)
+    summary = evaluator.validate(loader)
+    print("== evaluation summary ==")
+    for k, v in summary.items():
+        print(f"  {k}: {v}")
+
+    if args.analyze:
+        npzs = sorted(glob.glob(os.path.join(args.log_dir, "metrics_*.npz")))
+        if npzs:
+            print("== recall analysis ==")
+            for k, v in recall_analysis(npzs[-1]).items():
+                print(f"  {k}: {v}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

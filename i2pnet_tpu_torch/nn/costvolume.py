@@ -8,7 +8,8 @@ attention over a 3D KNN neighbourhood. Only the shipped correlation
 
 At eval in bf16, the all-pixels pi side runs as the fused cv1 kernel
 (``ops/cv_cuda.py``) under the JAX package's routing condition
-(costvolume.py:87-118 there).
+(costvolume.py:87-118 there); ``I2PNET_FUSED_CV=0`` (read at call time)
+takes the native chain.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from i2pnet_tpu_torch.nn.layers import PointwiseConv, PointwiseMLP, cat, softmax
+from i2pnet_tpu_torch.nn.layers import PointwiseConv, PointwiseMLP, cat, eval_route, softmax
 from i2pnet_tpu_torch.ops import cv_cuda
 from i2pnet_tpu_torch.ops.cv_cuda import mean_std_normalize
 from i2pnet_tpu_torch.ops.pointops import index_points, knn_point
@@ -62,6 +63,7 @@ class CostVolume(nn.Module):
             and self.nsample_q <= 0
             and self.dtype == torch.bfloat16
             and cv_cuda.fused_cv1_eval_supported(self.mlp1, self.mlp2)
+            and eval_route("I2PNET_FUSED_CV")
         ):
             pi_feat1_new = cv_cuda.fused_cv1_eval(
                 warped_xyz, warped_points, f2_xyz, f2_points,

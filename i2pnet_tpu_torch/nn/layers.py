@@ -9,6 +9,12 @@ parameters to it and returns it; without one, the input and f32 parameters
 promote to f32. BatchNorm is flax's ``(x - mean) * (rsqrt(var + eps) *
 scale) + bias`` in f32, cast to the requested dtype: at eval with the
 running statistics, in training with the batch's (see ``BatchNorm``).
+
+The JAX package's eval-route switches are read at call time with its
+values: ``I2PNET_FUSED_EVAL`` (the encoder block here),
+``I2PNET_FUSED_CV`` (``nn/costvolume.py``) and ``I2PNET_PROJ_DENSE_EVAL``
+(``nn/proj_backbone.py``) through ``eval_route``, and
+``I2PNET_PW_BN_F32=1`` in ``PointwiseConv``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,19 @@ from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, pool_route_cuda
 # flax momentum 0.9 (running = 0.9 * running + 0.1 * batch), eps 1e-5
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+
+
+def eval_route(env_name: str) -> bool:
+    """An eval-route switch, read at call time: ``0`` takes the native
+    chain (False); unset, ``auto``, ``1`` and ``interpret`` take the fused
+    route (True), which runs the kernel on CUDA tensors and its plain
+    version on CPU tensors; any other value raises."""
+    mode = os.environ.get(env_name, "auto")
+    if mode == "0":
+        return False
+    if mode in ("auto", "1", "interpret"):
+        return True
+    raise ValueError(f"{env_name}={mode!r}: expected 0, 1, auto or interpret")
 
 
 def cat(tensors, dim: int) -> torch.Tensor:
@@ -115,13 +134,14 @@ class BatchStatsNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, f32: bool = False) -> torch.Tensor:
+        """f32: normalise in f32 whatever ``dtype`` (``I2PNET_PW_BN_F32``)."""
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
         mean = xf.mean(dims)
         var = torch.square(xf - mean).mean(dims)
         rs = torch.rsqrt(var + BN_EPS)
-        if self.dtype is not None:
+        if self.dtype is not None and not f32:
             dt = self.dtype
             y = (x.to(dt) - mean.to(dt)) * rs.to(dt)
             return y * self.weight.to(dt) + self.bias.to(dt)
@@ -131,7 +151,9 @@ class BatchStatsNorm(nn.Module):
 class PointwiseConv(nn.Module):
     """Dense (+ BN) (+ activation) over the channel axis. ``bn_stats=False``
     takes ``BatchStatsNorm`` (``BatchStatsNorm_0``, as flax names it) in
-    place of ``BatchNorm``."""
+    place of ``BatchNorm``. With a compute dtype the normalisation's result
+    is in it, unless ``I2PNET_PW_BN_F32=1`` (read at call time), which
+    applies it in f32, as the JAX package does."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = False,
                  activation: Optional[str] = "leaky", dtype: Optional[torch.dtype] = None,
@@ -145,11 +167,11 @@ class PointwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Dense_0(x, self.dtype)
+        f32 = os.environ.get("I2PNET_PW_BN_F32") == "1"
         if self.BatchNorm_0 is not None:
-            # with a compute dtype the normalisation's result is in it
-            x = self.BatchNorm_0(x, self.dtype)
+            x = self.BatchNorm_0(x, None if f32 else self.dtype)
         elif self.BatchStatsNorm_0 is not None:
-            x = self.BatchStatsNorm_0(x)
+            x = self.BatchStatsNorm_0(x, f32)
         if self.activation == "leaky":
             x = leaky_relu(x)
         elif self.activation == "relu":
@@ -275,7 +297,8 @@ class RGBEncoderStage(nn.Module):
     the port's own limits, e.g. cout a multiple of 8), and runs the native
     chain elsewhere; the gate decides the route on every device, so a CPU
     run takes the same route as the card. Where only one package's gate
-    holds, the two differ in rounding points. ``I2PNET_FUSED_TRAIN=0``
+    holds, the two differ in rounding points. ``I2PNET_FUSED_EVAL=0`` takes
+    the native chain at eval (``eval_route``), ``I2PNET_FUSED_TRAIN=0``
     (read at call time, as JAX reads it) takes the native chain in bf16
     training too. The native chain (f32 always): conv, BN with batch or
     running statistics, LeakyReLU, ``max_pool_3x3``; with
@@ -300,7 +323,8 @@ class RGBEncoderStage(nn.Module):
         if self.dtype == torch.bfloat16:
             B, H, W, cin = x.shape
             if not self.training:
-                if conv_cuda.stage_supported(H, W, cin, self.channels, self.strides):
+                if eval_route("I2PNET_FUSED_EVAL") and conv_cuda.stage_supported(
+                        H, W, cin, self.channels, self.strides):
                     return self._fused_eval(x)
             elif os.environ.get("I2PNET_FUSED_TRAIN") != "0" and \
                     conv_train_cuda.stage_supported_train(

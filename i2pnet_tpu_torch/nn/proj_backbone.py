@@ -9,7 +9,8 @@ windowed selects on the grids (``ops/projection.py``).
 
 At eval, ``ProjectPointNet`` with BatchStatsNorm takes the dense route
 (``ops/dense_window.py``, multiplicities from the selection kernel on the
-card), as the JAX package does on its chip; in training it takes the
+card), as the JAX package does on its chip, unless
+``I2PNET_PROJ_DENSE_EVAL=0`` (read at call time); in training it takes the
 gathered route.
 """
 
@@ -20,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from i2pnet_tpu_torch.nn.layers import PointwiseConv, PointwiseMLP, cat, softmax
+from i2pnet_tpu_torch.nn.layers import PointwiseConv, PointwiseMLP, cat, eval_route, softmax
 from i2pnet_tpu_torch.ops.cv_cuda import mean_std_normalize
 from i2pnet_tpu_torch.ops.dense_window import dense_pointnet_eval
 from i2pnet_tpu_torch.ops.pointops import grouping, safe_norm
@@ -65,7 +66,7 @@ class ProjectPointNet(nn.Module):
         new_xyz (B, out_h, out_w, 3), new_feat (B, out_h, out_w, mlp[-1]))."""
         modes = dict(center_mode=center_mode, using_intens=using_intens,
                      raw_feat_point=raw_feat_point)
-        if self.use_bn and not self.training:
+        if self.use_bn and not self.training and eval_route("I2PNET_PROJ_DENSE_EVAL"):
             layers = [(c.Dense_0.weight, c.Dense_0.bias, c.BatchStatsNorm_0.weight,
                        c.BatchStatsNorm_0.bias) for c in self.mlp_convs.layers]
             return dense_pointnet_eval(

@@ -1,4 +1,5 @@
-"""The train steps of the port, both families (port of ``i2pnet_tpu/train``)."""
+"""The train and eval steps and the checkpoints of the port, both families
+(port of ``i2pnet_tpu/train``)."""
 
 from i2pnet_tpu_torch.train.state import (
     TrainState,
@@ -6,12 +7,19 @@ from i2pnet_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
 )
-from i2pnet_tpu_torch.train.step import make_train_step, make_train_step_proj
+from i2pnet_tpu_torch.train.step import (
+    make_eval_step,
+    make_eval_step_proj,
+    make_train_step,
+    make_train_step_proj,
+)
 
 __all__ = [
     "TrainState",
     "clip_by_global_norm_",
     "create_train_state",
+    "make_eval_step",
+    "make_eval_step_proj",
     "make_optimizer",
     "make_train_step",
     "make_train_step_proj",

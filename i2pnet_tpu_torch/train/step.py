@@ -1,10 +1,12 @@
-"""The train steps of both families (port of ``i2pnet_tpu/train/step.py``).
+"""The train and eval steps of both families (port of
+``i2pnet_tpu/train/step.py``).
 
 One step is forward in train mode (batch-statistics BatchNorm, which moves
 the running statistics, and head dropout), the loss, backward, optional
 global-norm clipping, Adam with coupled L2, and the schedule. Everything
 stays on the model's device: the metrics are device tensors and the step
-makes no host synchronisation.
+makes no host synchronisation. An eval step is the model's eval forward
+under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -125,3 +127,39 @@ def make_train_step_proj(model, cfg: I2PNetProjConfig):
     """``make_train_step`` for ``I2PNetProj``: the batch also carries raw_xyz
     (B,N,3), the raw cloud that sets the range image."""
     return _make_step(model, _proj_loss_fn(model, cfg))
+
+
+def make_eval_step_proj(model, cfg: I2PNetProjConfig):
+    """Returns ``eval_step(batch) -> out dict`` for ``I2PNetProj``: the model
+    in eval mode under ``torch.inference_mode()``. batch: rgb, lidar,
+    raw_xyz, intrinsic and optional lidar_feats, tensors on the model's
+    device."""
+
+    def eval_step(batch: dict) -> dict:
+        model.eval()
+        with torch.inference_mode():
+            return model(batch["rgb"], batch["lidar"], batch["raw_xyz"], batch["intrinsic"],
+                         lidar_feature=batch.get("lidar_feats"))
+
+    return eval_step
+
+
+def make_eval_step(model, cfg: I2PNetConfig):
+    """Returns ``eval_step(batch) -> out dict`` for ``I2PNet``: the model in
+    eval mode under ``torch.inference_mode()``. batch: rgb, lidar,
+    intrinsic and optional lidar_feats and raw_xyz, tensors on the model's
+    device. The projection-mask inputs of the JAX step (``gt_project``,
+    the delay counter) are not ported: a config that needs them raises,
+    as the model does when built."""
+    if cfg.ground_truth_projection_mask_eval:
+        raise NotImplementedError("projection masks (gt_project) are not ported yet")
+
+    def eval_step(batch: dict) -> dict:
+        if batch.get("gt_project") is not None:
+            raise NotImplementedError("projection masks (gt_project) are not ported yet")
+        model.eval()
+        with torch.inference_mode():
+            return model(batch["rgb"], batch["lidar"], batch["intrinsic"],
+                         lidar_feature=batch.get("lidar_feats"), raw_xyz=batch.get("raw_xyz"))
+
+    return eval_step

@@ -1,6 +1,7 @@
 """The port imports torch and never jax, nor any module of the JAX package
-(``i2pnet_tpu``), not even one that imports no jax; nor does
-``chip_smoke.py``, with every import it makes anywhere in the file.
+(``i2pnet_tpu``), not even one that imports no jax; nor do
+``chip_smoke.py`` and ``evaluate_torch.py``, with every import each makes
+anywhere in the file.
 
 Run in a subprocess: this test process already holds jax (conftest.py)."""
 
@@ -23,6 +24,24 @@ NEW = [
     "i2pnet_tpu_torch.ops.conv_train_cuda",
     "i2pnet_tpu_torch.nn.layers",
     "i2pnet_tpu_torch.train.step",
+    # the evaluation harness: se3 and the metrics, the data layer (the
+    # large-range loader and its transforms, native IO and the pipeline),
+    # the checkpoints, the evaluator and analysis, seeding, cli.build
+    "i2pnet_tpu_torch.ops.se3",
+    "i2pnet_tpu_torch.metrics",
+    "i2pnet_tpu_torch.data",
+    "i2pnet_tpu_torch.data.calib",
+    "i2pnet_tpu_torch.data.transforms",
+    "i2pnet_tpu_torch.data.native_io",
+    "i2pnet_tpu_torch.data.kitti_large_range",
+    "i2pnet_tpu_torch.data.pipeline",
+    "i2pnet_tpu_torch.train.checkpoint",
+    "i2pnet_tpu_torch.eval",
+    "i2pnet_tpu_torch.eval.evaluator",
+    "i2pnet_tpu_torch.eval.analysis",
+    "i2pnet_tpu_torch.utils",
+    "i2pnet_tpu_torch.utils.seeding",
+    "i2pnet_tpu_torch.cli",
 ]
 
 PROBE = f"NEW = {NEW!r}\n" + """
@@ -31,13 +50,14 @@ import i2pnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(i2pnet_tpu_torch.__path__, "i2pnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-tree = ast.parse(open("chip_smoke.py").read())
-for node in ast.walk(tree):
-    if isinstance(node, ast.Import):
-        for alias in node.names:
-            importlib.import_module(alias.name)
-    elif isinstance(node, ast.ImportFrom) and node.module:
-        importlib.import_module(node.module)
+for script in ("chip_smoke.py", "evaluate_torch.py"):
+    for node in ast.walk(ast.parse(open(script).read())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                importlib.import_module(alias.name)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            importlib.import_module(node.module)
+importlib.import_module("evaluate_torch")
 print(len(names))
 for name in NEW:
     assert name in names, name
@@ -56,5 +76,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (28 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 28
+    # the walk found the whole package (43 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 43

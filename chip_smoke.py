@@ -734,6 +734,13 @@ CLI_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * CLI_BATCHES,
 FREE_EVALUATOR_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * FREE_EVAL_BATCHES,
                                encoder_block=15 * EVAL_STAGES * FREE_EVAL_BATCHES,
                                cv1=EVAL_STAGES * FREE_EVAL_BATCHES)
+# the evaluator's own throughput comes from a second pass with no capture
+# on, over each phase's data repeated, so that a dozen full batches count
+CLI_REPEATS, FREE_EVAL_REPEATS = 4, 5
+TIMED_CLI_BATCHES = -(-2 * EVAL_FRAMES * CLI_REPEATS // BATCH)
+TIMED_CLI_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * TIMED_CLI_BATCHES,
+                          select=5 * EVAL_STAGES * TIMED_CLI_BATCHES)
+TIMED_FREE_LAUNCHES = {k: v * FREE_EVAL_REPEATS for k, v in FREE_EVALUATOR_LAUNCHES.items()}
 KITTI_CALIB = (
     "P2: 7.188560e+02 0.000000e+00 6.071928e+02 4.538225e+01 0.000000e+00 7.188560e+02 "
     "1.852157e+02 -1.130887e-01 0.000000e+00 0.000000e+00 1.000000e+00 3.779761e-03\n"
@@ -800,6 +807,42 @@ class FreeEvalDataset:
 
     def __getitem__(self, i):
         return self.samples[i]
+
+
+class Repeated:
+    """`times` copies of a dataset, one after another."""
+
+    def __init__(self, ds, times: int):
+        self.ds, self.times = ds, times
+
+    def __len__(self):
+        return self.times * len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i % len(self.ds)]
+
+
+def evaluator_throughput(launches_of, label, want, models, cfg, proj: bool, ds, log_dir):
+    """Validate once more with no Capture or CascadeRecorder on, so every
+    kernel's output is freed as a user's run frees it; prints the window's
+    mean_fps (full batches less the first) and the whole pass's pairs/s
+    with the loading on the loader's one thread."""
+    import math
+
+    from i2pnet_tpu_torch.data import BatchLoader
+    from i2pnet_tpu_torch.eval import Evaluator
+
+    evaluator = Evaluator(models, cfg, proj=proj, log_dir=log_dir)
+    t0 = time.perf_counter()
+    summary = launches_of(label, want, lambda: evaluator.validate(
+        BatchLoader(ds, BATCH, shuffle=False, drop_last=False), save_metrics=False))
+    wall = time.perf_counter() - t0
+    check(math.isfinite(summary["mean_fps"]) and summary["count"] == len(ds)
+          and not summary["timing_includes_compile"], f"{label}: summary {summary}")
+    print(f"{label}: mean_time_s {summary['mean_time_s']:.6f}, mean_fps "
+          f"{summary['mean_fps']:.2f} pairs/s over {len(ds) // BATCH - 1} timed batches (no "
+          f"capture on); the whole pass {len(ds) / wall:.2f} pairs/s with the loading, "
+          f"{len(ds)} pairs in {wall:.1f} s")
 
 
 def collate_first(ds):
@@ -1426,9 +1469,15 @@ def main() -> int:
         check_cascade(stages, first, True, rec.outs[0], "phase 16")
         print(f"phase 16: evaluate_torch.py, a {EVAL_STAGES}-stage proj cascade in bf16 at "
               f"B={BATCH}: mean_time_s {summary['mean_time_s']:.6f}, mean_fps "
-              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window); the "
-              f"host loads a sample in {load_ms:.1f} ms (one thread) on {card}")
-        del stages, first, rec
+              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window; the "
+              f"checks' captures on); the host loads a sample in {load_ms:.1f} ms (one "
+              f"thread) on {card}")
+        del first, rec
+        evaluator_throughput(
+            launches_of, "proj_evaluator_timed", TIMED_CLI_LAUNCHES, stages, pcfg, True,
+            Repeated(KittiLargeRangeDataset(os.path.join(work, "data"), mode="test", seed=0),
+                     CLI_REPEATS), os.path.join(work, "proj_timed"))
+        del stages
 
         # --- phase 17: free-point evaluation through the Evaluator
         ds = FreeEvalDataset(FREE_EVAL_BATCHES * BATCH, cfg.lidar_in_points)
@@ -1456,8 +1505,13 @@ def main() -> int:
         check_cascade(models, first, False, rec.outs[0], "phase 17")
         print(f"phase 17: Evaluator, a {EVAL_STAGES}-stage free-point cascade in bf16 at "
               f"B={BATCH}: mean_time_s {summary['mean_time_s']:.6f}, mean_fps "
-              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window) on {card}")
-        del stages, models, evaluator, first, rec
+              f"{summary['mean_fps']:.2f} pairs/s (eager; loading outside the window; the "
+              f"checks' captures on) on {card}")
+        del evaluator, first, rec
+        evaluator_throughput(launches_of, "free_evaluator_timed", TIMED_FREE_LAUNCHES, models,
+                             cfg, False, Repeated(ds, FREE_EVAL_REPEATS),
+                             os.path.join(work, "free_timed"))
+        del stages, models
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phases 16-17: {time.perf_counter() - t_eval:.1f} s")

@@ -121,12 +121,7 @@ class BatchLoader:
         device_only: bool = False,
         transform: Optional[Callable[[dict], dict]] = None,
         num_workers: int = 0,
-        host_slice: Optional[slice] = None,
     ):
-        """host_slice: rows of each GLOBAL batch this process assembles
-        (multi-host: every process enumerates the same seeded shuffle, so
-        slicing the index arrays keeps the global batch deterministic while
-        each host only loads its own samples)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -135,7 +130,6 @@ class BatchLoader:
         self.device_only = device_only
         self.transform = transform
         self.num_workers = num_workers
-        self.host_slice = host_slice
         self.seed = seed
         self._epoch = 0
         self.rng = np.random.default_rng(seed)
@@ -164,10 +158,7 @@ class BatchLoader:
         if self.shuffle:
             self.rng.shuffle(idx)
         nb = len(self)
-        out = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
-        if self.host_slice is not None:
-            out = [b[self.host_slice] for b in out]
-        return out
+        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.num_workers >= 1:

@@ -131,11 +131,12 @@ def test_metrics_match_jax(tmp_path):
     exact(M.eval_acc(logits, labels), JM.eval_acc(logits, labels))
     exact(M.eval_acc(logits[..., :1], labels, sigmoid=True),
           JM.eval_acc(logits[..., :1], labels, sigmoid=True))
-    # the Lie maps, f32 in both packages: 1e-6 relative where the
-    # prediction's rotation lies within 90 deg of the ground truth's. Toward
+    # the Lie maps, f32 in both packages: 1e-6 relative on every row whose
+    # predicted rotation lies within 150 deg of the ground truth's. Toward
     # 180 deg the log map's arccos amplifies the packages' f32 roundings (the
-    # matrix products sum in other orders): up to 1.7e-5 relative at 175 deg
-    # on these poses, held at 1e-4
+    # matrix products sum in other orders): on these poses msee differs by
+    # 4.1e-6 relative at 167 deg and 1.7e-5 at 175 deg, so the rows from
+    # 150 deg on are held at 5e-5
     gt_se3 = M.extrinsic_to_se3(gt_raw)
     _close(gt_se3, JM.extrinsic_to_se3(gt_raw), 1e-6)
     axis = rng.normal(size=(B, 3))
@@ -143,12 +144,14 @@ def test_metrics_match_jax(tmp_path):
     half = np.linspace(0, np.pi / 4, B)  # turns of up to 90 deg
     turn = np.concatenate([np.cos(half)[:, None], np.sin(half)[:, None] * axis], -1)
     near = np.concatenate([_qmul(q_gt, turn), out3[:, 4:]], -1).astype(np.float32)
-    for pred, rtol in ((near, 1e-6), (out3, 1e-4)):
+    far = np.degrees(JM.quaternion_distance(out3[:, :4], q_gt)) >= 150.0
+    assert 0 < far.sum() < B
+    for pred, rows, rtol in ((near, slice(None), 1e-6), (out3, ~far, 1e-6), (out3, far, 5e-5)):
         pred_raw = M.get_extrinsic(pred, q_gt, t_gt, init, out_raw=True)[2]
         msee = M.eval_msee(pred, gt_se3, pred_E=pred_raw)
-        _close(msee, JM.eval_msee(pred, gt_se3, pred_E=pred_raw), rtol)
+        _close(msee[rows], JM.eval_msee(pred, gt_se3, pred_E=pred_raw)[rows], rtol)
         _close(M.eval_msee(pred, gt_se3), msee, 1e-6)
-        _close(M.eval_mrr(msee, gt_se3), JM.eval_mrr(msee, gt_se3), rtol)
+        _close(M.eval_mrr(msee, gt_se3)[rows], JM.eval_mrr(msee, gt_se3)[rows], rtol)
     assert np.degrees(JM.quaternion_distance(near[:, :4], q_gt)).max() <= 90.01
     rre, rte = JM.rte_rre(pred_E, gt_E)
     th = (float(np.quantile(rre, 0.8)), float(np.quantile(rte, 0.8)))  # some pass, some not

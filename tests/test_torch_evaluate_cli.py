@@ -74,6 +74,10 @@ def test_jax_checkpoint_evaluates_through_the_port(tmp_path, monkeypatch):
 
     common = ["--tiny", "--root_path", root, "--batch_size", "4", "--model_dir", *stages]
     monkeypatch.setenv("I2PNET_KNN_MODE", "exact")  # evaluate.py sets it; restored after
+    # evaluate.py inits the model eagerly only for the variables' tree (the
+    # checkpoints overwrite every value); the jitted init gives the same tree
+    # without compiling each op on its own
+    monkeypatch.setattr(JaxI2PNetProj, "init", lambda self, key, *a, train: init(key, *a))
     monkeypatch.setenv("I2PNET_PROJ_DENSE_EVAL", "interpret")
     jlog, plog = [], []
     _record(monkeypatch, JM, jlog)

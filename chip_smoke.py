@@ -10,8 +10,9 @@ projection-family I2PNetProj eval forward and train step, the shipped proj
 config in bf16 at B=8, a 160x512 image and 150,000 raw points a row
 (120,000 real, the tail zero), projected to a 64x1800 range image; then the
 evaluation entry point, both families' 2-stage cascades through
-``evaluate_torch.py`` and ``Evaluator`` at the same shapes. Phases, each
-raising on failure:
+``evaluate_torch.py`` and ``Evaluator`` at the same shapes; then the
+training entry point, ``train_torch.py`` and the ``Trainer``, and a short
+convergence run. Phases, each raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -100,7 +101,33 @@ raising on failure:
 17. the free-point ``Evaluator`` on an in-memory dataset (B=8, 384x1280,
    8192 points, 3 batches, seeded decalibrations), two stages of the
    shipped config in bf16 through the checkpoints: the same checks, with
-   FPS 4, encoder block 15 and cv1 1 a stage and batch.
+   FPS 4, encoder block 15 and cv1 1 a stage and batch;
+18. training through the CLI: ``train_torch.main`` on a large-range tree of
+   its own (training sequences 0-1 with 16 frames, validation 9 with 8:
+   4 steps and one validation batch an epoch), the shipped proj config in
+   bf16 at B=8, 2 epochs with 2 loader workers; checks the trainer's
+   files (the JAX trainer's names), finite losses, that every parameter
+   and statistic moved, the checkpoints and bests, the launches of the run
+   and of the first step (conv fwd 15, dx 14, dw 15, bn_pool fwd 15, bwd
+   15) and the first validation batch (encoder block 15, select 5), every
+   kernel call of those two against its plain version (the other steps
+   run with no capture); then ``--resume --max_epoch 3`` (starts at epoch
+   2, Adam's state restored), ``evaluate_torch.main --analyze`` on the
+   rotation-best snapshot over phase 16's test split; then, timed, two
+   epochs of 16 steps (the training frames linked 4 times) from scratch at
+   each of ``--num_workers 2``, ``4`` and ``0``, printing the trainer's ms
+   a step and pairs/s with the loading, and the loader's ms a batch alone;
+19. the free-point ``Trainer`` on in-memory pairs, the shipped config in
+   bf16 at B=8 in 2 microbatches a step (``accum_steps=2``), 2 epochs of 2
+   steps: the launches (FPS 4 and the train kernels a microbatch; FPS 4,
+   encoder block 15, cv1 1 a validation batch), the first step's and first
+   validation batch's kernel calls against their plain versions, finite
+   metrics; and on the proj model, two steps of
+   ``make_accum_train_step(accum_steps=1)`` bit-identical to
+   ``make_train_step_proj`` from one copied state;
+20. ``tools/synthetic_convergence_torch.py``'s loop on the shipped free
+   config in bf16 at B=8, 100 steps: RRE and RTE on its held-out batch
+   must fall.
 
 Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
 its conv, and phase 4 gives cv1's TFLOP/s.
@@ -749,22 +776,24 @@ KITTI_CALIB = (
 )
 
 
-def write_large_range_tree(root: str) -> None:
-    """The KITTI large-range loader's test split on disk: sequences 7 and 8,
-    EVAL_FRAMES frames each; a scan is (7, EVAL_SCAN_POINTS) f32 (xyz of a
-    spinning LiDAR's returns 2-60 m out, intensity, unit normals), an image
+def write_large_range_tree(root: str, frames=None, seed: int = SEED) -> None:
+    """The KITTI large-range loader's layout on disk, ``frames`` {sequence:
+    frame count} (the test split, sequences 7 and 8 with EVAL_FRAMES each,
+    unless given); a scan is (7, EVAL_SCAN_POINTS) f32 (xyz of a spinning
+    LiDAR's returns 2-60 m out, intensity, unit normals), an image
     (376, 1241, 3) uint8."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
-    for seq in (7, 8):
+    rng = np.random.default_rng(seed)
+    frames = frames or {7: EVAL_FRAMES, 8: EVAL_FRAMES}
+    for seq, count in frames.items():
         seq_dir = os.path.join(root, "kitti_processed_DeepI2P", "data_odometry_velodyne",
                                "sequences", "%02d" % seq)
         for sub in ("voxel0.1-SNr0.6", "image_2_npy"):
             os.makedirs(os.path.join(seq_dir, sub))
         with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
             f.write(KITTI_CALIB)
-        for fi in range(EVAL_FRAMES):
+        for fi in range(count):
             n = EVAL_SCAN_POINTS
             r = rng.uniform(2.0, 60.0, n)
             az = rng.uniform(-np.pi, np.pi, n)
@@ -783,12 +812,12 @@ class FreeEvalDataset:
     free-point shapes: a cloud decalibrated by a pose drawn from a seeded
     numpy generator (+-1 m, +-0.2 rad), its inverse the ground truth."""
 
-    def __init__(self, count: int, points: int):
+    def __init__(self, count: int, points: int, seed: int = SEED):
         import numpy as np
 
         from i2pnet_tpu_torch.data import transforms as T
 
-        rng = np.random.default_rng(SEED)
+        rng = np.random.default_rng(seed)
         k = np.array([[718.0, 0, IMG_W / 2], [0, 718.0, IMG_H / 2], [0, 0, 1]], np.float32)
         self.samples = []
         for i in range(count):
@@ -935,6 +964,416 @@ def check_eval_outputs(summary, log_dir: str, count: int, label: str) -> None:
     print(f"{label}: summary finite, count {count}; prediction.txt {sections} sections, parsed; "
           f"metrics npz read back; rre_mean {summary['rre_mean']:.3f} deg, rte_mean "
           f"{summary['rte_mean']:.3f} m")
+
+
+# phases 18-20: training through the entry points. Phase 18 trains the proj
+# family through train_torch.py on a large-range tree of its own (training
+# sequences 0-1, validation 9: 4 steps and 1 validation batch an epoch);
+# phase 19 the free family through the Trainer with 2 microbatches a step
+# (16 training pairs, 2 steps an epoch); phase 20 the free family on
+# tools/synthetic_convergence_torch.py's data.
+TRAIN_FRAMES = {0: 16, 1: 16, 9: 8}
+CLI_STEPS = (TRAIN_FRAMES[0] + TRAIN_FRAMES[1]) // BATCH
+PROJ_VAL_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15, select=5)
+FREE_VAL_LAUNCHES = dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1)
+# the timed epochs: each training frame 4 times, 16 steps an epoch
+TIMED_REPEATS, TIMED_WORKERS = 4, (2, 4, 0)
+TIMED_STEPS = CLI_STEPS * TIMED_REPEATS
+FREE_TRAIN_PAIRS, ACCUM = 2 * BATCH, 2
+CONVERGE_STEPS = 100
+
+
+def run_launches(step, val, steps: int, vals: int):
+    """The launches of `steps` train steps and `vals` validation batches."""
+    return {k: steps * step[k] + vals * val[k] for k in NO_LAUNCHES}
+
+
+class FirstCalls:
+    """Wraps the step functions a Trainer builds (train/trainer.py's names):
+    the first train step and the first eval step each run with their
+    kernels' calls captured and their launches counted apart; every later
+    call runs bare."""
+
+    NAMES = ("make_accum_train_step", "make_eval_step", "make_eval_step_proj")
+
+    def __init__(self, kernels, read_counts):
+        self.kernels, self.read_counts = kernels, read_counts
+        self.captures, self.launches = {}, {}
+
+    def wrap(self, label, step):
+        import contextlib
+
+        import torch
+
+        def wrapped(*args):
+            if label in self.launches:
+                return step(*args)
+            caps = {k["name"]: Capture(k["module"], k["fn"]) for k in self.kernels[label]}
+            with contextlib.ExitStack() as stack:
+                for cap in caps.values():
+                    stack.enter_context(cap)
+                torch.cuda.synchronize()
+                before = self.read_counts()
+                out = step(*args)
+                torch.cuda.synchronize()
+                after = self.read_counts()
+            self.launches[label] = {k: after[k] - before[k] for k in after}
+            self.captures[label] = caps
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        from i2pnet_tpu_torch.train import trainer
+
+        self.saved = {name: getattr(trainer, name) for name in self.NAMES}
+        for name, make in self.saved.items():
+            label = "eval" if "eval" in name else "step"
+            setattr(trainer, name, lambda *a, _make=make, _label=label, **k:
+                    self.wrap(_label, _make(*a, **k)))
+        return self
+
+    def __exit__(self, *exc):
+        from i2pnet_tpu_torch.train import trainer
+
+        for name, make in self.saved.items():
+            setattr(trainer, name, make)
+
+
+def check_first_calls(first, want_step, want_eval, label: str) -> None:
+    """The first step's and the first validation batch's launches, and
+    every kernel call of both against its plain version (FPS and select
+    exactly, the encoder block and cv1 at phase 3's bars, the train kernels
+    at phase 6's)."""
+    import torch
+
+    check(first.launches.get("step") == want_step,
+          f"{label}: launches in the first step {first.launches.get('step')}")
+    check(first.launches.get("eval") == want_eval,
+          f"{label}: launches in the first validation batch {first.launches.get('eval')}")
+    with torch.no_grad():
+        for step, caps in first.captures.items():
+            for k in first.kernels[step]:
+                name, calls = k["name"], caps[k["name"]].calls
+                check(len(calls) == first.launches[step][name],
+                      f"{label}: {len(calls)} captured {name} calls for "
+                      f"{first.launches[step][name]} launches")
+                plain = getattr(k["module"], k["plain"])
+                if name in ("fps", "encoder_block", "cv1", "select"):
+                    eval_kernel_error(name, plain, calls)
+                else:
+                    err = train_kernel_error(name, getattr(k["module"], k["fn"]), plain, calls)
+                    print(f"{name}: {len(calls)} calls match the plain version, max abs err "
+                          f"{err:.3e}")
+    print(f"{label}: the first step's launches {compact(want_step)}, the first validation "
+          f"batch's {compact(want_eval)}; every call held against its plain version")
+
+
+def compact(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def scalars(log_dir: str, tag: str):
+    """[(step, value)] of one tag in the trainer's metrics.jsonl."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in recs if r["tag"] == tag]
+
+
+def proj_training_cli(ctx, work: str, test_root: str) -> None:
+    """Phase 18: train_torch.py trains the shipped proj config in bf16 at B=8
+    on a large-range tree (2 epochs, 2 loader workers), resumes for a third,
+    and evaluate_torch.py evaluates its rotation-best snapshot on phase 16's
+    test split; then the timed epochs (``timed_epochs``)."""
+    import math
+
+    import torch
+
+    import evaluate_torch
+    import train_torch
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    root, log_dir = os.path.join(work, "train_data"), os.path.join(work, "train_run")
+    t0 = time.perf_counter()
+    write_large_range_tree(root, TRAIN_FRAMES, seed=SEED + 1)
+    print(f"phase 18: wrote the large-range training tree ({sum(TRAIN_FRAMES.values())} frames) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    argv = ["--dataset", "kd_corr_nolidar", "--network", "i2pnet_proj", "--compute_dtype",
+            "bfloat16", "--batch_size", str(BATCH), "--root_path", root, "--log_dir", log_dir]
+    step_launches = PROJ_TRAIN_LAUNCHES
+    initial = {}
+    real_build = cli.build
+
+    def build(args):
+        model, cfg, proj = real_build(args)
+        initial.setdefault("state", {k: v.clone() for k, v in model.state_dict().items()})
+        return model, cfg, proj
+
+    cli.build = build
+    try:
+        with FirstCalls({"step": ctx.train_kernels, "eval": [ctx.block, ctx.select]},
+                        ctx.read_counts) as first:
+            trainer = ctx.launches_of(
+                "proj_train_cli", run_launches(step_launches, PROJ_VAL_LAUNCHES, 2 * CLI_STEPS, 2),
+                lambda: train_torch.main(argv + ["--max_epoch", "2", "--num_workers", "2"]))
+    finally:
+        cli.build = real_build
+    check_first_calls(first, step_launches, PROJ_VAL_LAUNCHES, "phase 18")
+    del first
+    names = set(os.listdir(log_dir))
+    want = {"config.json", "metrics.jsonl", "log.txt", "log_rotate.txt", "log_trans.txt",
+            "src_snapshot.tar.gz", "torch"}
+    check(want <= names, f"phase 18: the trainer's files {sorted(names)}")
+    bests = sorted(os.listdir(os.path.join(log_dir, "torch", "best")))
+    check(bests == ["model_msee_best.pt", "model_rotation_best.pt", "model_transition_best.pt"],
+          f"phase 18: best snapshots {bests}")
+    losses = scalars(log_dir, "train/loss")
+    check([s for s, _ in losses] == [1, 1 + CLI_STEPS] and all(math.isfinite(v) for _, v in losses),
+          f"phase 18: train/loss records {losses}")
+    final = trainer.model.state_dict()
+    unmoved = [k for k, v in initial["state"].items() if torch.equal(v, final[k])]
+    check(not unmoved, f"phase 18: unchanged by training: {unmoved[:5]}")
+    mgr = CheckpointManager(log_dir)
+    payload, meta = mgr.restore()
+    check(mgr.all_steps() == [0, 1] and meta["epoch"] == 1 and meta["n_iter"] == 2 * CLI_STEPS
+          and payload["step"] == 2 * CLI_STEPS and meta["best"] == trainer.best
+          and all(math.isfinite(trainer.best[k]) for k in ("rotation", "translation", "msee")),
+          f"phase 18: checkpoints {mgr.all_steps()}, meta {meta}, bests {trainer.best}")
+    print(f"phase 18: train_torch.py, 2 epochs of {CLI_STEPS} steps: files with the JAX trainer's "
+          f"names, losses finite ({[round(v, 4) for _, v in losses]}), every parameter and "
+          f"statistic moved, checkpoints {mgr.all_steps()}, bests {trainer.best}")
+    del trainer, initial, final, payload
+
+    resumed = ctx.launches_of(
+        "proj_train_cli_resumed", run_launches(step_launches, PROJ_VAL_LAUNCHES, CLI_STEPS, 1),
+        lambda: train_torch.main(argv + ["--max_epoch", "3", "--num_workers", "2", "--resume"]))
+    adam_steps = {float(s["step"]) for s in resumed.state.optimizer.state.values()}
+    check(resumed.start_epoch == 2 and resumed.state.step == 3 * CLI_STEPS
+          and adam_steps == {3.0 * CLI_STEPS} and resumed.ckpt.all_steps() == [0, 1, 2],
+          f"phase 18: resumed at epoch {resumed.start_epoch}, step {resumed.state.step}, Adam's "
+          f"steps {adam_steps}, checkpoints {resumed.ckpt.all_steps()}")
+    print(f"phase 18: --resume started at epoch 2 with the optimizer restored (Adam's step "
+          f"{int(3 * CLI_STEPS)} after {CLI_STEPS} more updates)")
+    del resumed
+
+    eval_dir = os.path.join(work, "train_eval")
+    summary = ctx.launches_of(
+        "proj_train_cli_evaluate", run_launches(NO_LAUNCHES, PROJ_VAL_LAUNCHES, 0, CLI_BATCHES),
+        lambda: evaluate_torch.main(["--root_path", test_root, "--model_dir", log_dir,
+                                     "--compute_dtype", "bfloat16", "--batch_size", str(BATCH),
+                                     "--log_dir", eval_dir, "--analyze"]))
+    check_eval_outputs(summary, eval_dir, 2 * EVAL_FRAMES, "phase 18 evaluate_torch.py")
+
+    timed_epochs(ctx, root, os.path.join(work, "train_timed"))
+
+
+def repeated_tree(src: str, dst: str, repeats: int) -> None:
+    """``src``'s training sequences with each frame linked ``repeats`` times
+    under new numbers, and its validation sequence as it is: a longer epoch
+    of the same pairs with no more data written."""
+    rel = os.path.join("kitti_processed_DeepI2P", "data_odometry_velodyne", "sequences")
+    os.makedirs(os.path.join(dst, rel))
+    for seq, count in TRAIN_FRAMES.items():
+        a, b = os.path.join(src, rel, "%02d" % seq), os.path.join(dst, rel, "%02d" % seq)
+        if seq == 9:
+            os.symlink(a, b)
+            continue
+        os.makedirs(b)
+        os.symlink(os.path.join(a, "calib.txt"), os.path.join(b, "calib.txt"))
+        for sub in ("voxel0.1-SNr0.6", "image_2_npy"):
+            os.makedirs(os.path.join(b, sub))
+            for k in range(count * repeats):
+                os.symlink(os.path.join(a, sub, "%06d.npy" % (k % count)),
+                           os.path.join(b, sub, "%06d.npy" % k))
+
+
+def timed_epochs(ctx, root: str, runs: str) -> None:
+    """train_torch.py from scratch for 2 epochs of TIMED_STEPS steps at each
+    loader worker count, no capture: train/epoch_time_s (read after the
+    epoch's losses are pulled, so after the card's last step) of the first
+    epoch, which forks the pool, and of the second; then the loader alone
+    over the same tree."""
+    from i2pnet_tpu_torch.data import KittiLargeRangeDataset
+    import train_torch
+
+    tree = os.path.join(runs, "data")
+    repeated_tree(root, tree, TIMED_REPEATS)
+    for workers in TIMED_WORKERS:
+        log_dir = os.path.join(runs, f"{workers}_workers")
+        argv = ["--dataset", "kd_corr_nolidar", "--network", "i2pnet_proj", "--compute_dtype",
+                "bfloat16", "--batch_size", str(BATCH), "--root_path", tree, "--log_dir", log_dir,
+                "--max_epoch", "2", "--num_workers", str(workers)]
+        t0 = time.perf_counter()
+        ctx.launches_of(f"proj_train_cli_timed_{workers}_workers",
+                        run_launches(PROJ_TRAIN_LAUNCHES, PROJ_VAL_LAUNCHES, 2 * TIMED_STEPS, 2),
+                        lambda: train_torch.main(argv))
+        wall = time.perf_counter() - t0
+        epoch_s = dict(scalars(log_dir, "train/epoch_time_s"))
+        for epoch in (0, 1):
+            print(f"phase 18 trainer, --num_workers {workers}, epoch {epoch}: "
+                  f"{epoch_s[epoch] * 1e3 / TIMED_STEPS:.1f} ms a step, "
+                  f"{TIMED_STEPS * BATCH / epoch_s[epoch]:.2f} pairs/s with the loading "
+                  f"(train/epoch_time_s {epoch_s[epoch]:.3f} s for {TIMED_STEPS} steps of "
+                  f"B={BATCH}, no capture) on {ctx.card}")
+        print(f"phase 18 trainer, --num_workers {workers}: the whole call {wall:.1f} s with "
+              f"set-up, 2 validations and 2 checkpoints")
+        loader_alone(KittiLargeRangeDataset(tree, mode="train", seed=SEED), workers, ctx)
+
+
+def loader_alone(ds, workers: int, ctx) -> None:
+    """The training split through BatchLoader and prefetch_to_device with
+    no step, twice (the second pass reuses a pool): ms a batch."""
+    import torch
+
+    from i2pnet_tpu_torch.data import BatchLoader, prefetch_to_device
+
+    loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED, device_only=True,
+                         num_workers=workers)
+    passes = []
+    try:
+        for _ in range(2):
+            t0, n = time.perf_counter(), 0
+            for _batch in prefetch_to_device(loader, ctx.dev):
+                n += 1
+            torch.cuda.synchronize()
+            passes.append((time.perf_counter() - t0) * 1e3 / n)
+        print(f"phase 18 loader alone, --num_workers {workers}: {passes[0]:.1f} ms a batch of "
+              f"{BATCH} on the first pass, {passes[1]:.1f} on the second ({n} batches a pass; "
+              f"the host of {ctx.card})")
+        if workers:
+            assembly_times(loader)
+    finally:
+        loader.close()
+
+
+def timed_assembly(task):
+    """(seconds, bytes pickled) of one batch's assembly, as a pool worker
+    assembles it (``data/pipeline.py`` ``_assemble_batch``)."""
+    import pickle
+
+    from i2pnet_tpu_torch.data import pipeline
+
+    t0 = time.perf_counter()
+    batch = pipeline._assemble_batch(task)
+    return time.perf_counter() - t0, len(pickle.dumps(batch, pickle.HIGHEST_PROTOCOL))
+
+
+def assembly_times(loader) -> None:
+    """Where a pool's batch goes: one batch assembled in this process, one
+    in a worker alone, two in two workers at once, and a batch's pickle
+    round trip here (the pool sends each result through a pipe)."""
+    import pickle
+
+    import numpy as np
+
+    from i2pnet_tpu_torch.data import pipeline
+
+    pool = loader._get_pool()
+    tasks = [(loader._token, np.arange(k * BATCH, (k + 1) * BATCH), True, (SEED, 9, k))
+             for k in range(2)]
+    here, nbytes = timed_assembly(tasks[0])
+    alone, _ = pool.submit(timed_assembly, tasks[0]).result()
+    both = [f.result()[0] for f in [pool.submit(timed_assembly, t) for t in tasks]]
+    batch = pipeline._assemble_batch(tasks[0])
+    t0 = time.perf_counter()
+    pickle.loads(pickle.dumps(batch, pickle.HIGHEST_PROTOCOL))
+    trip = time.perf_counter() - t0
+    print(f"phase 18 loader: a batch assembles in {here * 1e3:.1f} ms in this process, "
+          f"{alone * 1e3:.1f} in a worker alone, {both[0] * 1e3:.1f} and {both[1] * 1e3:.1f} in "
+          f"two workers at once; its {nbytes / 1e6:.1f} MB pickle round trip {trip * 1e3:.1f} ms")
+
+
+def free_training(ctx, cfg, work: str) -> None:
+    """Phase 19: the Trainer trains the shipped free config in bf16 at B=8 in
+    2 microbatches a step on in-memory pairs, 2 epochs of 2 steps."""
+    import math
+
+    import torch
+
+    from i2pnet_tpu_torch.models import I2PNet, init_flax_
+    from i2pnet_tpu_torch.train.trainer import Trainer
+
+    model = init_flax_(I2PNet(cfg), torch.Generator().manual_seed(SEED))
+    train_ds = FreeEvalDataset(FREE_TRAIN_PAIRS, cfg.lidar_in_points, seed=SEED + 2)
+    val_ds = FreeEvalDataset(BATCH, cfg.lidar_in_points, seed=SEED + 3)
+    log_dir = os.path.join(work, "free_train")
+    steps = FREE_TRAIN_PAIRS // BATCH
+    micro = TRAIN_LAUNCHES  # FPS 4 and the train kernels, a microbatch
+    step_launches = {k: ACCUM * v for k, v in micro.items()}
+    with FirstCalls({"step": [ctx.fps] + ctx.train_kernels,
+                     "eval": [ctx.fps, ctx.block, ctx.cv1]}, ctx.read_counts) as first:
+        trainer = Trainer(model, cfg, train_ds, val_ds, log_dir=log_dir, batch_size=BATCH,
+                          epochs=2, save_rate=1, accum_steps=ACCUM, device="cuda")
+        ctx.launches_of("free_train_accum",
+                        run_launches(step_launches, FREE_VAL_LAUNCHES, 2 * steps, 2), trainer.train)
+    check_first_calls(first, step_launches, FREE_VAL_LAUNCHES, "phase 19")
+    del first
+    losses = scalars(log_dir, "train/loss")
+    val = [v for tag in ("val/rre_mean", "val/rte_mean", "val/msee") for _, v in scalars(log_dir, tag)]
+    check(len(losses) == 2 * steps and len(val) == 6
+          and all(math.isfinite(v) for v in [v for _, v in losses] + val),
+          f"phase 19: losses {losses}, validation {val}")
+    print(f"phase 19: Trainer, accum_steps={ACCUM} (microbatches of {BATCH // ACCUM}), 2 epochs of "
+          f"{steps} steps: losses {[round(v, 4) for _, v in losses]}, validation finite")
+    epoch_s = dict(scalars(log_dir, "train/epoch_time_s"))[1]
+    print(f"phase 19 trainer, epoch 1 (no capture): {epoch_s * 1e3 / steps:.1f} ms a step, "
+          f"{steps * BATCH / epoch_s:.2f} pairs/s with the loading ({steps} steps of B={BATCH} "
+          f"in {ACCUM} microbatches; in-memory pairs on the loader's thread) on {ctx.card}")
+
+
+def accum_of_one_is_plain(ctx, pcfg, pbatch) -> None:
+    """Phase 19 also: from one deep-copied proj model and state, two steps of
+    make_accum_train_step(accum_steps=1) and of make_train_step_proj, the
+    dropout generator seeded alike, agree bit for bit: metrics, parameters,
+    statistics, Adam's moments."""
+    import copy
+
+    import torch
+
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+    from i2pnet_tpu_torch.train import (create_train_state, make_accum_train_step,
+                                        make_train_step_proj)
+
+    base = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED))
+    runs = []
+    for make in (lambda m: make_train_step_proj(m, pcfg),
+                 lambda m: make_accum_train_step(m, pcfg, 1, proj=True)):
+        m = copy.deepcopy(base)
+        st = create_train_state(m, steps_per_epoch=100)
+        step, gen = make(m), torch.Generator(ctx.dev).manual_seed(SEED)
+        runs.append((m, st, [step(st, pbatch, gen) for _ in range(2)]))
+    del base
+    (ma, sa, meta), (mb, sb, metb) = runs
+    check(all(torch.equal(x[k], y[k]) for x, y in zip(meta, metb) for k in x),
+          "phase 19: accum_steps=1 metrics differ from the plain step's")
+    sdb = mb.state_dict()
+    check(all(torch.equal(v, sdb[k]) for k, v in ma.state_dict().items()),
+          "phase 19: accum_steps=1 parameters or statistics differ from the plain step's")
+    check(all(torch.equal(sa.optimizer.state[p][key], sb.optimizer.state[q][key])
+              for p, q in zip(ma.parameters(), mb.parameters()) for key in ("exp_avg", "exp_avg_sq")),
+          "phase 19: accum_steps=1 Adam moments differ from the plain step's")
+    print("phase 19: make_accum_train_step(accum_steps=1) on the proj model: two steps bit-identical "
+          "to make_train_step_proj (metrics, parameters, statistics, Adam's moments)")
+
+
+def convergence(ctx) -> None:
+    """Phase 20: tools/synthetic_convergence_torch.py's loop on the full free
+    config in bf16 at B=8: RRE and RTE on its held-out batch must fall."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "synthetic_convergence_torch.py")
+    spec = importlib.util.spec_from_file_location("synthetic_convergence_torch", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    rre0, rte0, rre1, rte1 = tool.converge(steps=CONVERGE_STEPS, batch=BATCH, device=ctx.dev)
+    check(rre1 < rre0 and rte1 < rte0,
+          f"phase 20: no improvement: RRE {rre0:.2f} -> {rre1:.2f} deg, RTE {rte0:.3f} -> {rte1:.3f} m")
+    print(f"phase 20: synthetic convergence, free config bf16 B={BATCH}, {CONVERGE_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s: RRE {rre0:.2f} -> {rre1:.2f} deg, RTE {rte0:.3f} -> "
+          f"{rte1:.3f} m on {ctx.card}")
 
 
 def main() -> int:
@@ -1511,10 +1950,28 @@ def main() -> int:
         evaluator_throughput(launches_of, "free_evaluator_timed", TIMED_FREE_LAUNCHES, models,
                              cfg, False, Repeated(ds, FREE_EVAL_REPEATS),
                              os.path.join(work, "free_timed"))
-        del stages, models
+        del stages, models, ds
+        print(f"phases 16-17: {time.perf_counter() - t_eval:.1f} s")
+
+        # --- phases 18-20: training through the entry points
+        import types
+
+        ctx = types.SimpleNamespace(
+            launches_of=launches_of, read_counts=read_counts, train_kernels=train_kernels,
+            fps=eval_kernels[0], block=block, cv1=eval_kernels[2], select=select, card=card,
+            dev=dev)
+        t0 = time.perf_counter()
+        proj_training_cli(ctx, work, os.path.join(work, "data"))
+        print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        free_training(ctx, cfg, work)
+        accum_of_one_is_plain(ctx, pcfg, pbatch)
+        print(f"phase 19: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phases 16-17: {time.perf_counter() - t_eval:.1f} s")
+    t0 = time.perf_counter()
+    convergence(ctx)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

@@ -19,8 +19,11 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import warnings
 
 _ITEM5 = "ROADMAP queue 1, item 5"
+# the datasets whose loaders read --test_rt (evaluate.py)
+_READS_TEST_RT = ("kd_cmr_snr", "nus_cmr_snr")
 
 
 def parse_args(argv=None):
@@ -43,8 +46,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tag", default="")
     p.add_argument("--test_rt", default=None,
-                   help="CSV of fixed test decalibrations; only kd_cmr_snr "
-                        f"reads it, which is not ported ({_ITEM5})")
+                   help="CSV of fixed test decalibrations, read by kd_cmr_snr "
+                        f"and nus_cmr_snr, whose loaders are not ported ({_ITEM5}); "
+                        "kd_corr_nolidar takes the flag and ignores it, as "
+                        "evaluate.py does")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--debug_nans", action="store_true",
                    help="check every stage's out3/out4 with torch.isfinite "
@@ -71,12 +76,17 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
+    if args.test_rt and args.dataset in _READS_TEST_RT:
+        raise NotImplementedError(
+            f"--test_rt is read by {' and '.join(_READS_TEST_RT)}, whose loaders are not "
+            f"ported ({_ITEM5})")
     if args.dataset != "kd_corr_nolidar":
         raise NotImplementedError(
             f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is "
             f"not ported ({_ITEM5})")
     if args.test_rt:
-        raise NotImplementedError(f"--test_rt is read only by kd_cmr_snr ({_ITEM5})")
+        warnings.warn(f"--test_rt {args.test_rt}: the {args.dataset} loader does not read it "
+                      "(evaluate.py ignores it too)")
     if args.vis_rate > 0:
         raise NotImplementedError(f"--vis_rate: eval/visualize.py is not ported ({_ITEM5})")
     if args.efgh:

@@ -69,9 +69,16 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
 
 
 def _find_adam_state(tree):
-    """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain's state."""
+    """(count, mu, nu) of optax's ``ScaleByAdamState`` inside a chain's
+    state: the NamedTuple of a live state, or the dict that a checkpoint
+    restored without a target tree holds in its place (orbax gives the
+    chain's tuples back as lists)."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree["count"], tree["mu"], tree["nu"]
+        return None
     if all(hasattr(tree, k) for k in ("count", "mu", "nu")):
-        return tree
+        return tree.count, tree.mu, tree.nu
     if isinstance(tree, (tuple, list)):
         for sub in tree:
             found = _find_adam_state(sub)
@@ -82,7 +89,8 @@ def _find_adam_state(tree):
 
 def load_optax_adam_state(state, opt_state) -> None:
     """Load the Adam state of an optax chain built by the JAX package's
-    ``make_optimizer`` into a port ``TrainState`` (``train/state.py``):
+    ``make_optimizer`` (live, or as a checkpoint restored without a target
+    tree gives it) into a port ``TrainState`` (``train/state.py``):
     ``mu``/``nu`` -> ``exp_avg``/``exp_avg_sq`` of each parameter, by the
     renaming of ``flax_to_state_dict``; ``count`` -> each parameter's
     ``step`` and the state's update count, which sets the schedule's rate.
@@ -90,9 +98,9 @@ def load_optax_adam_state(state, opt_state) -> None:
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) in opt_state")
-    count = int(np.asarray(adam.count))
-    mu = flax_to_state_dict({"params": adam.mu})
-    nu = flax_to_state_dict({"params": adam.nu})
+    count = int(np.asarray(adam[0]))
+    mu = flax_to_state_dict({"params": adam[1]})
+    nu = flax_to_state_dict({"params": adam[2]})
     params = dict(state.model.named_parameters())
     if set(mu) != set(params) or set(nu) != set(params):
         raise ValueError("the optax moments do not match the model's parameters")

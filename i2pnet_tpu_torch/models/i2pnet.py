@@ -187,6 +187,35 @@ class I2PNet(nn.Module):
         return {"out3": out3.float(), "out4": out4.float(), "sx": self.sx, "sq": self.sq}
 
 
+# flax's lecun_normal: a normal truncated at 2 std, widened so that the
+# truncated draw keeps a variance of 1 / fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fresh weights from ``generator`` with the distribution the JAX
+    package's models start training from (flax's defaults): Dense and Conv
+    kernels lecun-normal (truncated at 2 std, variance 1 / fan_in), their
+    biases 0; every norm's scale 1 and shift 0, running mean 0 and
+    variance 1; sq and sx from the config. Draws on the CPU, in module
+    order, so a seed gives the same weights on any device."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            w = module.weight
+            std = w[0].numel() ** -0.5 / _TRUNCATED_STD
+            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std, -2 * std, 2 * std,
+                                          generator=generator))
+            module.bias.zero_()
+        elif isinstance(module, (BatchNorm, BatchStatsNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+    return model
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill a model's weights from ``generator``: Dense/Conv weights

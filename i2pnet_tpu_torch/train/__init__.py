@@ -8,6 +8,7 @@ from i2pnet_tpu_torch.train.state import (
     make_optimizer,
 )
 from i2pnet_tpu_torch.train.step import (
+    make_accum_train_step,
     make_eval_step,
     make_eval_step_proj,
     make_train_step,
@@ -18,6 +19,7 @@ __all__ = [
     "TrainState",
     "clip_by_global_norm_",
     "create_train_state",
+    "make_accum_train_step",
     "make_eval_step",
     "make_eval_step_proj",
     "make_optimizer",

@@ -9,11 +9,17 @@ best snapshots (``model_rotation_best``, ...). They live under
     <log_dir>/torch/ckpt/<step>.pt    {"state": ..., "meta": ...}
     <log_dir>/torch/best/<name>.pt    {"state": ...}
 
-A state is ``{"model": state_dict, "step": int}`` (``state_of`` builds it
-from a ``TrainState``); tensors are stored on the CPU, so a checkpoint
-loads on any device. Each file is written to a temporary name and renamed,
-so a reader never sees half of one. The optimizer state is not stored
-yet: it comes with the port's trainer.
+An epoch checkpoint's state is ``{"model": state_dict, "optimizer":
+optimizer.state_dict(), "step": int}`` (``state_of`` builds it from a
+``TrainState``; ``restore_train_state`` resumes one from it). The
+schedule's position is the update count ``step``. Best snapshots hold the
+model alone, as in the JAX package; so does a checkpoint written before
+the optimizer was stored, which still loads for inference but cannot be
+resumed. Tensors are stored on the CPU, so a checkpoint loads on any
+device, and everything in a file is what ``torch.load(...,
+weights_only=True)`` reads (tensors, numbers, strings, lists and dicts).
+Each file is written to a temporary name and renamed, so a reader never
+sees half of one.
 """
 
 from __future__ import annotations
@@ -29,12 +35,35 @@ SUBDIR = "torch"
 
 def state_of(train_state) -> dict:
     """The checkpointed part of a ``TrainState``: the model's parameters and
-    statistics, and the update count."""
-    return {"model": _cpu(train_state.model.state_dict()), "step": int(train_state.step)}
+    statistics, the optimizer's state and the update count."""
+    return {"model": _cpu(train_state.model.state_dict()),
+            "optimizer": _cpu(train_state.optimizer.state_dict()),
+            "step": int(train_state.step)}
 
 
-def _cpu(state_dict) -> dict:
-    return {k: v.detach().cpu() for k, v in state_dict.items()}
+def restore_train_state(train_state, payload: dict) -> None:
+    """Resume ``train_state`` from a checkpoint's state (as ``state_of``
+    gives it): the model strictly, then the optimizer, then the update
+    count, which sets the schedule's rate."""
+    if "optimizer" not in payload:
+        raise ValueError(
+            "the checkpoint holds no optimizer state (a model-only checkpoint, written for "
+            "inference or converted without its run's config.json): it loads for "
+            "evaluation but cannot resume training")
+    train_state.model.load_state_dict(payload["model"], strict=True)
+    train_state.optimizer.load_state_dict(payload["optimizer"])
+    train_state.set_step(int(payload["step"]))
+
+
+def _cpu(tree):
+    """``tree`` with every tensor detached and on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
 
 
 def _write(path: str, payload: dict) -> None:
@@ -78,9 +107,7 @@ class CheckpointManager:
 
     @staticmethod
     def _state(state: Any) -> dict:
-        if not isinstance(state, dict):
-            return state_of(state)
-        return dict(state, model=_cpu(state["model"]))
+        return _cpu(state) if isinstance(state, dict) else state_of(state)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

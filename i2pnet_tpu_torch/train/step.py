@@ -67,8 +67,9 @@ def _free_point_loss_fn(model, cfg: I2PNetConfig, img_size=None, train_target: s
             "loss_q": loss_q,
             "loss_x": loss_x,
             "loss_mask": mask_loss if mask_loss is not None else torch.zeros_like(loss),
-            "sx": out["sx"].reshape(()),
-            "sq": out["sq"].reshape(()),
+            # copies: the update changes the parameters in place after this
+            "sx": out["sx"].reshape(()).clone(),
+            "sq": out["sq"].reshape(()).clone(),
         }
         return loss, {k: v.detach() for k, v in metrics.items()}
 
@@ -88,24 +89,43 @@ def _proj_loss_fn(model, cfg: I2PNetProjConfig):
             out["sx"], out["sq"], l1_trans=cfg.l1_trans_loss,
         )
         metrics = {"loss": loss, "loss_q": loss_q, "loss_x": loss_x,
-                   "sx": out["sx"].reshape(()), "sq": out["sq"].reshape(())}
+                   "sx": out["sx"].reshape(()).clone(), "sq": out["sq"].reshape(()).clone()}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     return loss_fn
 
 
-def _make_step(model, loss_fn):
+def _make_step(model, loss_fn, accum_steps: int = 1):
+    """The train step over ``accum_steps`` microbatches (one for the plain
+    step): each runs forward and backward in turn, adding its gradients to
+    ``.grad``; their sum is divided by ``accum_steps`` before the clip, then
+    Adam makes one update and the schedule one step. With one microbatch
+    the slice is the whole batch, the division by 1 and the mean of one
+    value are exact, so the plain step is this step bit for bit."""
+
     def train_step(state: TrainState, batch: dict, generator=None) -> dict:
+        B = batch["rgb"].shape[0]
+        if B % accum_steps != 0:
+            raise ValueError(f"batch size {B} not divisible by accum_steps {accum_steps}")
+        size = B // accum_steps
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generator)
-        loss.backward()
+        metrics = []
+        for i in range(accum_steps):
+            loss, m = loss_fn({k: v[i * size:(i + 1) * size] for k, v in batch.items()},
+                              generator)
+            loss.backward()
+            metrics.append(m)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
         if state.clip > 0:
             clip_by_global_norm_(model.parameters(), state.clip)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return metrics
+        return {k: torch.stack([m[k] for m in metrics]).mean(0) for k in metrics[0]}
 
     return train_step
 
@@ -127,6 +147,31 @@ def make_train_step_proj(model, cfg: I2PNetProjConfig):
     """``make_train_step`` for ``I2PNetProj``: the batch also carries raw_xyz
     (B,N,3), the raw cloud that sets the range image."""
     return _make_step(model, _proj_loss_fn(model, cfg))
+
+
+def make_accum_train_step(model, cfg, accum_steps: int, proj: bool = False,
+                          img_size: Optional[Tuple[int, int]] = None, train_target: str = "all"):
+    """Gradient accumulation: ``train_step(state, batch, generator=None) ->
+    metrics`` with one optimizer update per call, built from ``accum_steps``
+    microbatches run forward and backward one after another (the JAX
+    package's ``make_accum_train_step``).
+
+    The batch's leading axis B splits into ``accum_steps`` microbatches of
+    B // accum_steps samples (B not divisible raises ``ValueError``). The
+    gradients are summed over the microbatches and divided by
+    ``accum_steps``; clipping applies to that average, then Adam makes one
+    update and the schedule one step. BatchNorm running statistics move
+    microbatch by microbatch (each normalises with its own statistics). The
+    metrics are the microbatches' mean. The dropout generator is drawn
+    microbatch after microbatch (JAX splits its key per microbatch, so the
+    two agree only with dropout off). With ``accum_steps=1`` the step is
+    bit-identical to ``make_train_step`` / ``make_train_step_proj``.
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    loss_fn = (_proj_loss_fn(model, cfg) if proj
+               else _free_point_loss_fn(model, cfg, img_size, train_target))
+    return _make_step(model, loss_fn, accum_steps)
 
 
 def make_eval_step_proj(model, cfg: I2PNetProjConfig):

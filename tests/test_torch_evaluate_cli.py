@@ -29,7 +29,10 @@ from i2pnet_tpu.models import I2PNetProj as JaxI2PNetProj
 from i2pnet_tpu.train import create_train_state
 from i2pnet_tpu.train.checkpoint import CheckpointManager as JaxManager
 from i2pnet_tpu_torch import metrics as M
+from i2pnet_tpu_torch.config import I2PNetProjConfig
 from i2pnet_tpu_torch.eval import analysis
+from i2pnet_tpu_torch.models import I2PNetProj
+from i2pnet_tpu_torch.train.checkpoint import CheckpointManager
 from test_torch_data import write_large_range_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,10 +111,27 @@ def test_evaluate_torch_refuses_what_is_not_ported(tmp_path):
     base = ["--model_dir", str(tmp_path), "--device", "cpu"]
     for extra, match in ((["--dataset", "kd_cmr_snr"], "item 5"), (["--dp"], "item 9"),
                          (["--vis_rate", "2"], "item 5"), (["--efgh"], "item 7"),
-                         (["--test_rt", "rt.csv"], "kd_cmr_snr")):
+                         (["--dataset", "kd_cmr_snr", "--test_rt", "rt.csv"],
+                          "nus_cmr_snr.*item 5")):
         with pytest.raises(NotImplementedError, match=match):
             evaluate_torch.main(base + extra)
     # the same flags and defaults as evaluate.py, and --device (the card)
     assert evaluate_torch.parse_args(["--model_dir", "x"]).device == "cuda"
     for flag, value in vars(evaluate.parse_args(["--model_dir", "x"])).items():
         assert getattr(evaluate_torch.parse_args(["--model_dir", "x"]), flag) == value, flag
+
+
+def test_evaluate_torch_takes_test_rt_on_kd_corr_nolidar(tmp_path):
+    """evaluate.py accepts --test_rt on kd_corr_nolidar and ignores it (its
+    large-range loader draws the decalibrations): the port runs the
+    protocol the same way and warns that the loader does not read it."""
+    root = write_large_range_tree(str(tmp_path / "data"), (7, 8), 1, 3000, seed=5)
+    run = str(tmp_path / "run")
+    model = I2PNetProj(I2PNetProjConfig.tiny(), device="cpu")
+    CheckpointManager(run).save_best("model_rotation_best", {"model": model.state_dict()})
+    with pytest.warns(UserWarning, match="does not read it"):
+        summary = evaluate_torch.main(["--tiny", "--root_path", root, "--model_dir", run,
+                                       "--device", "cpu", "--batch_size", "2", "--test_rt",
+                                       str(tmp_path / "rt.csv"),
+                                       "--log_dir", str(tmp_path / "eval")])
+    assert summary["count"] == 2 and np.isfinite(summary["rre_mean"])

@@ -1,6 +1,7 @@
 """The port imports torch and never jax, nor any module of the JAX package
-(``i2pnet_tpu``), not even one that imports no jax; nor do
-``chip_smoke.py`` and ``evaluate_torch.py``, with every import each makes
+(``i2pnet_tpu``), not even one that imports no jax; nor do its scripts
+(``chip_smoke.py``, ``evaluate_torch.py``, ``train_torch.py`` and
+``tools/synthetic_convergence_torch.py``), with every import each makes
 anywhere in the file.
 
 Run in a subprocess: this test process already holds jax (conftest.py)."""
@@ -42,22 +43,31 @@ NEW = [
     "i2pnet_tpu_torch.utils",
     "i2pnet_tpu_torch.utils.seeding",
     "i2pnet_tpu_torch.cli",
+    # the training entry point: the trainer and its utilities
+    "i2pnet_tpu_torch.train.trainer",
+    "i2pnet_tpu_torch.utils.avgmeter",
+    "i2pnet_tpu_torch.utils.monitor",
+    "i2pnet_tpu_torch.utils.timings",
 ]
+SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
+           "tools/synthetic_convergence_torch.py"]
 
-PROBE = f"NEW = {NEW!r}\n" + """
-import ast, importlib, pkgutil, sys
+PROBE = f"NEW = {NEW!r}\nSCRIPTS = {SCRIPTS!r}\n" + """
+import ast, importlib, importlib.util, os, pkgutil, sys
 import i2pnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(i2pnet_tpu_torch.__path__, "i2pnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke.py", "evaluate_torch.py"):
+for script in SCRIPTS:
     for node in ast.walk(ast.parse(open(script).read())):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 importlib.import_module(alias.name)
         elif isinstance(node, ast.ImportFrom) and node.module:
             importlib.import_module(node.module)
-importlib.import_module("evaluate_torch")
+    name = os.path.basename(script)[:-3]
+    spec = importlib.util.spec_from_file_location(name, script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))
 for name in NEW:
     assert name in names, name
@@ -76,5 +86,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (43 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 43
+    # the walk found the whole package (47 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 47

@@ -1,0 +1,103 @@
+#!/usr/bin/env python
+"""Training CLI of the PyTorch / CUDA port: the twin of ``train.py``, with
+the same flags and defaults and ``--device``.
+
+Builds the model (``i2pnet_tpu_torch/cli.py`` ``build``) and the KITTI
+large-range training and validation splits (``build_datasets``,
+``--dataset kd_corr_nolidar``), then runs the port's ``Trainer``: per-epoch
+checkpoints with the optimizer state under ``<log_dir>/torch/``, validation
+and named best snapshots, config.json, metrics.jsonl and the text logs.
+``--resume`` continues from the newest epoch checkpoint, also one that
+``tools/jax_ckpt_to_torch.py`` converted from a JAX run. Runs on the CUDA
+card unless ``--device cpu`` is given.
+
+    python3 train_torch.py --dataset kd_corr_nolidar --network i2pnet_proj \\
+        --compute_dtype bfloat16 --num_workers 4 --log_dir log/proj
+"""
+
+from __future__ import annotations
+
+import argparse
+
+_ITEM5 = "ROADMAP queue 1, item 5"
+_ITEM7 = "ROADMAP queue 1, item 7"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--dataset", default="kd_cmr_snr",
+                   choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
+                            "kd_corr_nolidar", "nus_corr_nolidar"],
+                   help="only kd_corr_nolidar is ported; the others raise "
+                        f"NotImplementedError ({_ITEM5})")
+    p.add_argument("--network", default="i2pnet",
+                   choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
+    p.add_argument("--root_path", default="/dataset")
+    p.add_argument("--log_dir", default="log")
+    p.add_argument("--max_epoch", type=int, default=200)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--save_rate", type=int, default=20)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--clip", type=float, default=-1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient-accumulation microbatches per optimizer step")
+    p.add_argument("--tiny", action="store_true", help="tiny config (smoke testing)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError on the first step whose loss or updated "
+                        "parameters are not finite (one host synchronisation a step)")
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="conv/dense compute dtype (params stay f32)")
+    p.add_argument("--color_augment", action="store_true",
+                   help="image color jitter on the training split")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="batch-assembly worker processes (0 = one thread)")
+    p.add_argument("--train_target", default="all", choices=["all", "regist", "class"],
+                   help="loss composition; 'class' (the mask heads) is not ported "
+                        f"({_ITEM7})")
+    p.add_argument("--efgh", action="store_true",
+                   help=f"online-calibration EFGH variant; not ported ({_ITEM7})")
+    p.add_argument("--device", default="cuda",
+                   help="the device the model trains on (cuda, or cpu)")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    if args.dataset != "kd_corr_nolidar":
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is not ported "
+            f"({_ITEM5})")
+    if args.efgh:
+        raise NotImplementedError(f"--efgh: the efgh branch is not ported ({_ITEM7})")
+    if args.train_target == "class":
+        raise NotImplementedError(f"--train_target class: the mask heads are not ported ({_ITEM7})")
+
+
+def main(argv=None):
+    """Train; returns the ``Trainer``."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.train.trainer import Trainer
+    from i2pnet_tpu_torch.utils.seeding import set_seed
+
+    set_seed(args.seed)
+    model, cfg, proj = cli.build(args)
+    train_ds, valid_ds = cli.build_datasets(args, cfg)
+    trainer = Trainer(
+        model, cfg, train_ds, valid_ds,
+        log_dir=args.log_dir, batch_size=args.batch_size, lr=args.lr,
+        weight_decay=args.weight_decay, clip=args.clip, epochs=args.max_epoch,
+        seed=args.seed, proj=proj, save_rate=args.save_rate, resume=args.resume,
+        accum_steps=args.accum_steps, run_flags=vars(args), train_target=args.train_target,
+        num_workers=args.num_workers, device=args.device, debug_nans=args.debug_nans,
+    )
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,8 @@ config in bf16 at B=8, a 160x512 image and 150,000 raw points a row
 evaluation entry point, both families' 2-stage cascades through
 ``evaluate_torch.py`` and ``Evaluator`` at the same shapes; then the
 training entry point, ``train_torch.py`` and the ``Trainer``, and a short
-convergence run. Phases, each raising on failure:
+convergence run; then the online-calibration model and the projection-mask
+and option branches. Phases, each raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -127,7 +128,34 @@ convergence run. Phases, each raising on failure:
    ``make_train_step_proj`` from one copied state;
 20. ``tools/synthetic_convergence_torch.py``'s loop on the shipped free
    config in bf16 at B=8, 100 steps: RRE and RTE on its held-out batch
-   must fall.
+   must fall;
+21. the online-calibration (efgh) model: the shipped config with
+   ``efgh=True`` in bf16 at B=8, the raw loader's 352x1216 images, 8192
+   camera-frame points at a raw drive's ranges (5-120 m) and calib = the
+   resized KITTI raw K @ [I|0] (as ``emit_calib`` builds it): the eval
+   forward (FPS 4, encoder block 15, cv1 1 at K = 11x38 = 418; FPS and the
+   blocks against their plain versions at the bars of phase 3; cv1 within
+   1/256 of its output's largest magnitude of its plain version and no
+   further than it from the exact f64 chain, and on a 10-30 m cloud within
+   phase 3's 5e-3; a repeat identical; eager and graph-replayed times), a
+   2-stage ``Evaluator`` cascade threading calib (16 pairs; its files; the
+   first batch against a hand-composed pair of forwards, bit for bit) and
+   its throughput over 12 batches with no capture on, and the train step (dropout, Adam: the train kernels' launches, every call
+   against its plain version at phase 6's bars, every parameter and
+   statistic moved; timed);
+22. the projection-mask branch at the bench shape (``use_projection_mask``,
+   both mask heads, ``ground_truth_projection_mask``, ``mask_delay``; bf16,
+   B=8, 384x1280, 8192 points): a train step with ``train_target="all"``
+   (timed), the ``Trainer`` for 2 epochs of 2 steps with
+   ``train_target="class"`` (``model_acc_best`` written, the mask accuracy
+   finite), a step of the ``mask_sigmoid`` heads (without the ground-truth
+   mix, which JAX's sigmoid head cannot broadcast), and the eval-time
+   gt-mask fallback forward (pm3 one-hot);
+23. eval forwards of the shipped config in bf16 at the bench shape with
+   each option: the ``concat`` and ``cosine`` correlations, ``max_cost``,
+   ``backward_fc`` (cv1 0: JAX fuses none of them) and non-empty pose-head
+   MLPs with each ``head_corr_func``, with and without the position
+   embedding (cv1 1).
 
 Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
 its conv, and phase 4 gives cv1's TFLOP/s.
@@ -204,10 +232,10 @@ def cuda_ms(fn, repeats: int) -> float:
     return statistics.median(elapsed_ms(fn) for _ in range(repeats))
 
 
-def windows_ms(fn):
-    """Median ms of one fn() over WINDOWS windows of ITERS calls, and the
+def windows_ms(fn, iters: int = ITERS):
+    """Median ms of one fn() over WINDOWS windows of `iters` calls, and the
     windows' spread in percent of it."""
-    windows = [elapsed_ms(lambda: [fn() for _ in range(ITERS)]) / ITERS for _ in range(WINDOWS)]
+    windows = [elapsed_ms(lambda: [fn() for _ in range(iters)]) / iters for _ in range(WINDOWS)]
     med = statistics.median(windows)
     return med, (max(windows) - min(windows)) / med * 100.0
 
@@ -810,26 +838,34 @@ def write_large_range_tree(root: str, frames=None, seed: int = SEED) -> None:
 class FreeEvalDataset:
     """In-memory samples with the KITTI CMR loader's keys at the shipped
     free-point shapes: a cloud decalibrated by a pose drawn from a seeded
-    numpy generator (+-1 m, +-0.2 rad), its inverse the ground truth."""
+    numpy generator (+-1 m, +-0.2 rad), its inverse the ground truth. With
+    ``efgh`` the online-calibration loader's: 352x1216 images, clouds at a
+    raw drive's ranges (``drive_cloud``), the resized KITTI raw camera and
+    its 'calib' ([K | 0], as ``emit_calib`` builds it)."""
 
-    def __init__(self, count: int, points: int, seed: int = SEED):
+    def __init__(self, count: int, points: int, seed: int = SEED, efgh: bool = False):
         import numpy as np
 
         from i2pnet_tpu_torch.data import transforms as T
 
         rng = np.random.default_rng(seed)
-        k = np.array([[718.0, 0, IMG_W / 2], [0, 718.0, IMG_H / 2], [0, 0, 1]], np.float32)
+        h, w = (EFGH_H, EFGH_W) if efgh else (IMG_H, IMG_W)
+        k = efgh_intrinsic() if efgh else np.array(
+            [[718.0, 0, IMG_W / 2], [0, 718.0, IMG_H / 2], [0, 0, 1]], np.float32)
         self.samples = []
         for i in range(count):
-            raw = rng.uniform(-10, 10, size=(points, 3)).astype(np.float32) + [0, 0, 20]
+            raw = drive_cloud(rng, points) if efgh else (
+                rng.uniform(-10, 10, size=(points, 3)).astype(np.float32) + [0, 0, 20])
             Pr = T.generate_random_transform(rng, 1.0, 1.0, 1.0, 0.2, 0.2, 0.2, clip_tz=False)
             q, t = T.decalib_ground_truth(np.linalg.inv(Pr)[:3])
             lidar = (raw @ Pr[:3, :3].T + Pr[:3, 3]).astype(np.float32)
             self.samples.append(dict(
-                rgb=rng.normal(size=(IMG_H, IMG_W, 3)).astype(np.float32), lidar=lidar,
+                rgb=rng.normal(size=(h, w, 3)).astype(np.float32), lidar=lidar,
                 lidar_feats=lidar, raw_point_xyz=raw.astype(np.float32), init_intrinsic=k,
                 init_extrinsic=Pr[:3].astype(np.float32), decalib_real_gt=q,
                 decalib_dual_gt=t, path_info="00 %06d %06d" % (i, i)))
+            if efgh:
+                self.samples[-1]["calib"] = np.hstack([k, np.zeros((3, 1), np.float32)])
 
     def __len__(self):
         return len(self.samples)
@@ -918,7 +954,8 @@ class CascadeRecorder:
 
 def check_cascade(models, batch, proj: bool, recorded, label: str) -> None:
     """The first batch's cascade equals a hand-composed pair of forwards:
-    stage 2 sees the cloud warped by stage 1's pose, the poses compose."""
+    stage 2 sees the cloud warped by stage 1's pose (and the same calib,
+    if any), the poses compose."""
     import torch
 
     from i2pnet_tpu_torch.ops import quaternion as Q
@@ -929,7 +966,8 @@ def check_cascade(models, batch, proj: bool, recorded, label: str) -> None:
     def forward(m, cloud):
         if proj:
             return m(rgb, cloud, raw, intr, lidar_feature=feats)["out3"]
-        return m(rgb, cloud, intr, lidar_feature=feats, raw_xyz=raw)["out3"]
+        return m(rgb, cloud, intr, lidar_feature=feats, raw_xyz=raw,
+                 calib=batch.get("calib"))["out3"]
 
     with torch.no_grad():
         o1 = forward(models[0], lidar)
@@ -1374,6 +1412,356 @@ def convergence(ctx) -> None:
     print(f"phase 20: synthetic convergence, free config bf16 B={BATCH}, {CONVERGE_STEPS} steps in "
           f"{time.perf_counter() - t0:.1f} s: RRE {rre0:.2f} -> {rre1:.2f} deg, RTE {rte0:.3f} -> "
           f"{rte1:.3f} m on {ctx.card}")
+
+
+# phases 21-23: the online-calibration (efgh) model at the raw loader's
+# 352x1216, the projection-mask branch at the bench shape, and the grid of
+# the cost volume's and the pose heads' options
+EFGH_H, EFGH_W = 352, 1216
+# the KITTI raw 2011_09_26 camera (the online-calibration loader's), whose
+# frames are 375x1242
+RAW_K, RAW_HW = ((7.215377e02, 0.0, 6.095593e02), (0.0, 7.215377e02, 1.728540e02),
+                 (0.0, 0.0, 1.0)), (375, 1242)
+EFGH_STAGE_BATCHES, EFGH_EVAL_REPEATS = 2, 6
+EFGH_EVALUATOR_LAUNCHES = {k: v * EVAL_STAGES * EFGH_STAGE_BATCHES
+                           for k, v in FREE_VAL_LAUNCHES.items()}
+EFGH_TIMED_LAUNCHES = {k: v * EFGH_EVAL_REPEATS for k, v in EFGH_EVALUATOR_LAUNCHES.items()}
+STEP_ITERS = 5
+MASK_CFG = dict(use_projection_mask=True, layer_mask=(True, True),
+                ground_truth_projection_mask=True, mask_delay=True)
+HEAD_MLPS = (((128, 64), (64,)), ((128, 64), (64,)))
+OPTION_GRID = [("concat", dict(cost_volume_corr_func="concat")),
+               ("cosine", dict(cost_volume_corr_func="cosine")),
+               ("max_cost", dict(max_cost=True)),
+               ("backward_fc", dict(backward_fc=True))] + [
+    (f"head {corr}{' pos' if pos else ''}", dict(pose_head_mlps=HEAD_MLPS, head_corr_func=corr,
+                                                 head_pos_embedding=pos))
+    for corr in ("concat", "diff", "normalized_diff") for pos in (False, True)]
+
+
+def efgh_intrinsic():
+    """The raw camera resized to 352x1216, as the loader scales it."""
+    import numpy as np
+
+    k = np.array(RAW_K, np.float64)
+    k[0] *= EFGH_W / RAW_HW[1]
+    k[1] *= EFGH_H / RAW_HW[0]
+    return k.astype(np.float32)
+
+
+def drive_cloud(rng, count: int):
+    """`count` camera-frame points at the ranges of a KITTI raw scan after
+    the raw loader's filter (ahead of the sensor): ranges 5-80 m, 15% of
+    them 80-120 m (the HDL-64E's reach), azimuth within 80 deg of the
+    optical axis, elevation -25 to +3 deg, depth over 2 m."""
+    import numpy as np
+
+    m = 2 * count
+    r = np.where(rng.uniform(size=m) < 0.85, rng.uniform(5, 80, m), rng.uniform(80, 120, m))
+    az = rng.uniform(-1, 1, m) * np.radians(80)
+    el = rng.uniform(np.radians(-25), np.radians(3), m)
+    pts = np.stack([r * np.cos(el) * np.sin(az), -r * np.sin(el), r * np.cos(el) * np.cos(az)], -1)
+    pts = pts[pts[:, 2] > 2]
+    check(len(pts) >= count, f"drive_cloud: {len(pts)} points ahead, {count} wanted")
+    return pts[:count].astype(np.float32)
+
+
+def efgh_inputs(points: int, device, near: bool = False):
+    """(rgb, camera-frame cloud, K, calib = [K | 0]) at B=8, 352x1216, from
+    numpy with seed 0: the online-calibration loader's frame and matrix;
+    the cloud at a raw drive's ranges (``drive_cloud``), or with ``near``
+    within 10 m of a point 20 m ahead (depths 10-30 m)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    rgb = rng.normal(size=(BATCH, EFGH_H, EFGH_W, 3)).astype(np.float32)
+    if near:
+        lidar = rng.uniform(-10, 10, size=(BATCH, points, 3)).astype(np.float32)
+        lidar[..., 2] += 20.0
+    else:
+        lidar = np.stack([drive_cloud(rng, points) for _ in range(BATCH)])
+    k = np.tile(efgh_intrinsic()[None], (BATCH, 1, 1))
+    calib = np.concatenate([k, np.zeros((BATCH, 3, 1), np.float32)], -1)
+    return tuple(torch.from_numpy(a).to(device) for a in (rgb, lidar, k, calib))
+
+
+def identity_gt(batch: dict, device) -> dict:
+    import torch
+
+    return dict(batch, decalib_q_gt=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=device)
+                .repeat(BATCH, 1), decalib_t_gt=torch.zeros(BATCH, 3, device=device))
+
+
+def check_step_moved(model, params0, buffers0, metrics, label: str) -> None:
+    """A finite loss; every parameter and BatchNorm statistic moved."""
+    import torch
+
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          f"{label}: metrics {({k: float(v) for k, v in metrics.items()})}")
+    unmoved = [n for n, p in model.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not unmoved, f"{label}: parameters unchanged by a step: {unmoved[:5]}")
+    unmoved = [n for n, b in model.named_buffers() if torch.equal(b, buffers0[n])]
+    check(not unmoved, f"{label}: statistics unchanged by a step: {unmoved[:5]}")
+
+
+def timed_step(step, state, batch, gen, label: str, card: str) -> None:
+    """The step's ms (median of 3 windows of STEP_ITERS steps, CUDA events)."""
+    import torch
+
+    losses = []
+    ms, spread = windows_ms(lambda: losses.append(step(state, batch, gen)["loss"]), STEP_ITERS)
+    check(bool(torch.isfinite(torch.stack(losses)).all()), f"{label}: a step's loss is not finite")
+    print(f"{label}: {ms:.3f} ms/step, {BATCH * 1000.0 / ms:.2f} pairs/s (B={BATCH}, median of "
+          f"{WINDOWS}x{STEP_ITERS}, spread {spread:.1f}%) on {card}")
+
+
+def print_cv1_scale(label: str, calls) -> None:
+    (args, out), = calls
+    t_pi, e_pi = (float(a.abs().max()) for a in args[1:3])
+    print(f"phase 21 cv1, {label}: K={args[3].shape[1]} pixels, max |t_pi| {t_pi:.1f}, max "
+          f"|e_pi| {e_pi:.1f} (depth-restored feature-pixel coordinates), max |out| "
+          f"{float(out.abs().max()):.3f}")
+
+
+def cv1_exact(pn, t_pi, e_pi, qn, t_qi, e_qi, w1c, w2, b2, w3, b3, v1a, v1b, v1, v2, v2b):
+    """cv1_plain's chain in f64 with none of its bf16 rounding points: the
+    function that the kernel and its plain version both approximate."""
+    import torch
+
+    f, leaky = (lambda x: x.double()), (lambda x: torch.maximum(x, 0.1 * x))
+    corr = f(qn)[:, None, :, :] * f(pn)[:, :, None, :]
+    h1 = leaky(corr @ f(w1c) + f(t_qi)[:, None] + f(t_pi)[:, :, None])
+    h3 = leaky(leaky(h1 @ f(w2) + f(b2)) @ f(w3) + f(b3))
+    e = leaky(f(e_qi)[:, None] + f(e_pi)[:, :, None])
+    g2 = leaky(leaky(e @ f(v1a) + h3 @ f(v1b) + f(v1)) @ f(v2) + f(v2b))
+    w = torch.exp(g2 - torch.amax(g2, dim=2, keepdim=True))
+    return torch.sum(w * h3, dim=2) / torch.sum(w, dim=2)
+
+
+def cv1_at_drive_scale(cv_module, calls) -> float:
+    """Hold cv1 at a raw drive's ranges, where t_pi and e_pi reach the
+    thousands and the chain's bf16 rounding points lose absolute precision
+    with them: the kernel within 1/256 of max |plain| (one bf16 step at the
+    output's largest magnitude) of its plain version, and no further from
+    the exact f64 chain than the plain version is (5% and 5e-3 of slack).
+    Returns the max abs error against the plain version."""
+    (args, got), = calls
+    ref = cv_module.cv1_plain(*args)
+    exact = cv1_exact(*args)
+    err = float((got.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    k_exact = float((got.double() - exact).abs().max())
+    p_exact = float((ref.double() - exact).abs().max())
+    del exact
+    print_cv1_scale("a raw drive's ranges", calls)
+    print(f"phase 21 cv1: max abs err {err:.3e} against the plain version (max |out| {scale:.3f}, "
+          f"bar {max(scale, 1.0) / 256:.3e}); against the exact f64 chain: kernel {k_exact:.3e}, "
+          f"plain {p_exact:.3e}")
+    check(err <= max(scale, 1.0) / 256, f"cv1 at drive ranges: {err} > max|ref|/256")
+    check(k_exact <= 1.05 * p_exact + 5e-3,
+          f"cv1 at drive ranges: {k_exact} from the exact chain, the plain version {p_exact}")
+    return err
+
+
+def efgh_phase(ctx, work: str) -> None:
+    """Phase 21: the efgh model (the shipped config with efgh, bf16, B=8,
+    352x1216, 8192 points at a raw drive's ranges, calib = the resized K @
+    [I|0]): the eval forward (FPS 4, encoder block 15, cv1 1, every call
+    against its plain version, a repeat identical, eager and
+    graph-replayed times), a 2-stage Evaluator cascade threading calib and
+    its throughput with no capture on, and the train step. Returns each
+    kernel's max abs error against its plain version there."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.data import BatchLoader
+    from i2pnet_tpu_torch.data.pipeline import prefetch_to_device
+    from i2pnet_tpu_torch.eval import Evaluator
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(I2PNetConfig(), efgh=True, compute_dtype="bfloat16")
+    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
+    rgb, lidar, k, calib = efgh_inputs(cfg.lidar_in_points, ctx.dev)
+
+    def forward():
+        return model(rgb, lidar, k, calib=calib)
+
+    caps = {kern["name"]: Capture(kern["module"], kern["fn"]) for kern in ctx.eval_kernels}
+    errors = {}
+    with torch.no_grad():
+        with caps["fps"], caps["encoder_block"], caps["cv1"]:
+            out = ctx.launches_of("efgh_eval", FREE_VAL_LAUNCHES, forward)
+        out2 = forward()
+        torch.cuda.synchronize()
+        check_outputs(out, out2, "phase 21 efgh eval")
+        for kern in ctx.eval_kernels[:2]:
+            errors[kern["name"]] = eval_kernel_error(
+                kern["name"], getattr(kern["module"], kern["plain"]), caps[kern["name"]].calls)
+        errors["cv1"] = cv1_at_drive_scale(ctx.cv1["module"], caps["cv1"].calls)
+        # depths of 10-30 m: cv1 within its absolute bar (not a counted run)
+        near = efgh_inputs(cfg.lidar_in_points, ctx.dev, near=True)
+        with Capture(ctx.cv1["module"], ctx.cv1["fn"]) as cap:
+            model(near[0], near[1], near[2], calib=near[3])
+        eval_kernel_error("cv1", ctx.cv1["module"].cv1_plain, cap.calls)
+        print_cv1_scale("depths 10-30 m", cap.calls)
+        del caps, cap, near
+        fwd_ms, spread = windows_ms(forward)
+        graph_ms = cuda_ms(graph_of(forward).replay, ITERS)
+    print(f"phase 21 efgh forward: {fwd_ms:.3f} ms/batch eager ({BATCH * 1000.0 / fwd_ms:.2f} "
+          f"pairs/s, spread {spread:.1f}%), {graph_ms:.3f} ms/batch under CUDA-graph replay "
+          f"({BATCH * 1000.0 / graph_ms:.2f} pairs/s) at B={BATCH}, {EFGH_H}x{EFGH_W} on "
+          f"{ctx.card}")
+    del model, out, out2
+
+    # the 2-stage Evaluator cascade, calib threaded through both stages
+    ds = FreeEvalDataset(EFGH_STAGE_BATCHES * BATCH, cfg.lidar_in_points, seed=SEED + 4, efgh=True)
+    models = [init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED + i)).eval()
+              for i in range(EVAL_STAGES)]
+    log_dir = os.path.join(work, "efgh_eval")
+    evaluator = Evaluator(models, cfg, proj=False, log_dir=log_dir)
+    with CascadeRecorder() as rec:
+        summary = ctx.launches_of(
+            "efgh_evaluator", EFGH_EVALUATOR_LAUNCHES,
+            lambda: evaluator.validate(BatchLoader(ds, BATCH, shuffle=False, drop_last=False)))
+    check_eval_outputs(summary, log_dir, len(ds), "phase 21 efgh Evaluator")
+    check_cascade(models, next(prefetch_to_device([collate_first(ds)], ctx.dev)), False,
+                  rec.outs[0], "phase 21")
+    print(f"phase 21: Evaluator, a {EVAL_STAGES}-stage efgh cascade (calib to both stages) in bf16 "
+          f"at B={BATCH}, {EFGH_H}x{EFGH_W}: {len(ds)} pairs, the checks' recorder on")
+    del evaluator, rec
+    evaluator_throughput(ctx.launches_of, "efgh_evaluator_timed", EFGH_TIMED_LAUNCHES, models,
+                         cfg, False, Repeated(ds, EFGH_EVAL_REPEATS),
+                         os.path.join(work, "efgh_timed"))
+    del models, ds
+
+    # the train step: bf16, dropout, Adam, on the train-encoder kernels
+    tmodel = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED))
+    state = create_train_state(tmodel, steps_per_epoch=100)
+    step, gen = make_train_step(tmodel, cfg), torch.Generator(ctx.dev).manual_seed(SEED)
+    batch = identity_gt({"rgb": rgb, "lidar": lidar, "intrinsic": k, "calib": calib}, ctx.dev)
+    params0 = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    buffers0 = {n: b.clone() for n, b in tmodel.named_buffers()}
+    caps = {kern["name"]: Capture(kern["module"], kern["fn"]) for kern in ctx.train_kernels}
+    with (caps["conv_fwd"], caps["conv_dx"], caps["conv_dw"], caps["bn_pool_fwd"],
+          caps["bn_pool_bwd"]):
+        metrics = ctx.launches_of("efgh_train", TRAIN_LAUNCHES, lambda: step(state, batch, gen))
+    check_step_moved(tmodel, params0, buffers0, metrics, "phase 21 efgh train step")
+    with torch.no_grad():
+        for kern in ctx.train_kernels:
+            err = train_kernel_error(kern["name"], getattr(kern["module"], kern["fn"]),
+                                     getattr(kern["module"], kern["plain"]),
+                                     caps[kern["name"]].calls)
+            print(f"phase 21 {kern['name']}: {len(caps[kern['name']].calls)} calls at "
+                  f"{EFGH_H}x{EFGH_W} match the plain version, max abs err {err:.3e}")
+            errors[kern["name"]] = err
+    del caps, params0, buffers0
+    print(f"phase 21 efgh train step: loss {float(metrics['loss']):.6f}; every parameter and "
+          f"statistic moved")
+    timed_step(step, state, batch, gen, "phase 21 efgh train step", ctx.card)
+    return errors
+
+
+def mask_phase(ctx, inputs, work: str) -> None:
+    """Phase 22: the projection-mask branch at the bench shape (B=8,
+    384x1280, 8192 points, bf16): a train step with train_target='all',
+    2-step Trainer epochs with train_target='class' (model_acc_best, the
+    mask accuracy finite), a step of the mask_sigmoid variant, and the
+    eval-time gt-mask fallback forward."""
+    import math
+
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step
+    from i2pnet_tpu_torch.train.trainer import Trainer
+
+    base = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16", **MASK_CFG)
+    rgb, lidar, k = inputs
+    batch = identity_gt({"rgb": rgb, "lidar": lidar, "intrinsic": k}, ctx.dev)
+    for label, cfg in (("all", base), ("sigmoid", dataclasses.replace(
+            base, mask_sigmoid=True, ground_truth_mask_layer=(False, False)))):
+        model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED))
+        state = create_train_state(model, steps_per_epoch=100)
+        step, gen = make_train_step(model, cfg), torch.Generator(ctx.dev).manual_seed(SEED)
+        params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+        metrics = ctx.launches_of(f"mask_train_{label}", TRAIN_LAUNCHES,
+                                  lambda: step(state, batch, gen))
+        check(float(metrics["loss_mask"]) > 0,
+              f"phase 22 {label}: loss_mask {float(metrics['loss_mask'])}")
+        check_step_moved(model, params0, buffers0, metrics, f"phase 22 mask step ({label})")
+        print(f"phase 22 mask step ({label}): loss {float(metrics['loss']):.6f}, loss_mask "
+              f"{float(metrics['loss_mask']):.6f}; every parameter and statistic moved")
+        if label == "all":
+            timed_step(step, state, batch, gen, "phase 22 mask train step (all)", ctx.card)
+        del model, state, step, params0, buffers0
+
+    # the Trainer on the mask-only loss: 2 epochs of 2 steps, a validation
+    # batch each; the mask accuracy is the only best
+    model = init_random_(I2PNet(base), torch.Generator().manual_seed(SEED))
+    log_dir = os.path.join(work, "mask_class")
+    trainer = Trainer(model, base, FreeEvalDataset(2 * BATCH, base.lidar_in_points, SEED + 5),
+                      FreeEvalDataset(BATCH, base.lidar_in_points, SEED + 6), log_dir=log_dir,
+                      batch_size=BATCH, epochs=2, save_rate=1, train_target="class",
+                      device="cuda")
+    ctx.launches_of("mask_trainer_class", run_launches(TRAIN_LAUNCHES, FREE_VAL_LAUNCHES, 4, 2),
+                    trainer.train)
+    acc = trainer.best["acc"]
+    check(trainer.ckpt.has_best("model_acc_best") and math.isfinite(acc) and 0 <= acc <= 1
+          and not trainer.ckpt.has_best("model_rotation_best"),
+          f"phase 22 Trainer class: best {trainer.best}")
+    losses = [v for _, v in scalars(log_dir, "train/loss")]
+    epoch_s = dict(scalars(log_dir, "train/epoch_time_s"))[1]
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses), f"phase 22 losses {losses}")
+    print(f"phase 22: Trainer, train_target='class', 2 epochs of 2 steps: mask losses "
+          f"{[round(v, 4) for v in losses]}, validation acc {acc:.4f}, model_acc_best written; "
+          f"epoch 1 {epoch_s * 1e3 / 2:.1f} ms a step with the loading on {ctx.card}")
+    del trainer, model
+
+    # the eval-time fallback of a gt-mask-trained model: no l3 head, the
+    # labels of the coarse pose stand in for the mask
+    fcfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16", layer_mask=(False, False))
+    model = init_random_(I2PNet(fcfg), torch.Generator().manual_seed(SEED)).eval()
+    with torch.no_grad():
+        out = ctx.launches_of("mask_fallback_eval", FREE_VAL_LAUNCHES, lambda: model(*inputs))
+        out2 = model(*inputs)
+    check_outputs(out, out2, "phase 22 gt-mask fallback")
+    pm3 = out["pm3"][0]
+    check(pm3.shape == (BATCH, fcfg.lidar_layer_points[2], 2)
+          and bool(((pm3 == 0) | (pm3 == 1)).all()) and bool((pm3.sum(-1) == 1).all()),
+          "phase 22: the fallback's pm3 is not one-hot")
+    print(f"phase 22: the gt-mask fallback forward: pm3 one-hot, {float(pm3[..., 1].mean()):.3f} "
+          f"of the l3 points in the frustum")
+
+
+def option_grid(ctx, inputs) -> None:
+    """Phase 23: eval forwards of the shipped config in bf16 at the bench
+    shape with each cost-volume option and each pose-head option; cv1
+    launches only where JAX fuses (the pose-head options), none on the
+    concat, cosine, max_cost and backward_fc cost volumes."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+
+    for label, kw in OPTION_GRID:
+        cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16", **kw)
+        model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
+        fused = not label.startswith(("concat", "cosine", "max_cost", "backward_fc"))
+        want = dict(FREE_VAL_LAUNCHES, cv1=1 if fused else 0)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = ctx.launches_of(f"options {label}", want, lambda: model(*inputs))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(bool(torch.isfinite(out[key]).all()) for key in ("out3", "out4")),
+              f"phase 23 {label}: out3/out4 not finite")
+        check(model.cost_volume1.fuses_cv1() == fused, f"phase 23 {label}: the cv1 gate")
+        print(f"phase 23 {label}: out3/out4 finite, cv1 {want['cv1']}; first forward {ms:.1f} ms "
+              f"on {ctx.card}")
+        del model, out
 
 
 def main() -> int:
@@ -1972,6 +2360,24 @@ def main() -> int:
     t0 = time.perf_counter()
     convergence(ctx)
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # --- phases 21-23: efgh, projection masks, the option grid
+    ctx.eval_kernels = eval_kernels
+    work = tempfile.mkdtemp(prefix="chip_smoke_branches_")
+    try:
+        t0 = time.perf_counter()
+        efgh_errors = efgh_phase(ctx, work)
+        print(f"phase 21: {time.perf_counter() - t0:.1f} s on {card}")
+        for label, fn in (("22", lambda: mask_phase(ctx, inputs, work)),
+                          ("23", lambda: option_grid(ctx, inputs))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"phase {label}: {time.perf_counter() - t0:.1f} s on {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for row in rows:  # the efgh path's worst error beside the bench inputs'
+        if row["name"] in efgh_errors:
+            row["efgh_max_abs_err"] = efgh_errors[row["name"]]
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

@@ -6,7 +6,9 @@ Loads the stages' checkpoints (a cascade when several --model_dir are
 given; each a log dir holding the port's checkpoints under ``torch/``, see
 ``i2pnet_tpu_torch/train/checkpoint.py``; a JAX run is converted with
 ``tools/jax_ckpt_to_torch.py``), runs the KITTI large-range test protocol
-(``--dataset kd_corr_nolidar``), and writes log_test.txt, prediction.txt
+(``--dataset kd_corr_nolidar``) or the online-calibration one on the raw
+test drive (``--dataset kitti``, fixed decalibrations; ``--efgh`` for the
+efgh model), and writes log_test.txt, prediction.txt
 and a metrics npz under --log_dir in the JAX package's formats; --analyze
 prints recall stats from the npz. Runs on the CUDA card unless
 ``--device cpu`` is given.
@@ -31,7 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--dataset", default="kd_corr_nolidar",
                    choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
                             "kd_corr_nolidar", "nus_corr_nolidar"],
-                   help="only kd_corr_nolidar is ported; the others raise "
+                   help="kd_corr_nolidar and kitti are ported; the others raise "
                         f"NotImplementedError ({_ITEM5})")
     p.add_argument("--network", default="i2pnet_proj",
                    choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
@@ -60,8 +62,8 @@ def parse_args(argv=None):
     p.add_argument("--vis_rate", type=int, default=0,
                    help=f"projection overlays; not ported ({_ITEM5}): only 0")
     p.add_argument("--efgh", action="store_true",
-                   help="online-calibration EFGH variant; not ported "
-                        "(ROADMAP queue 1, item 7)")
+                   help="online-calibration EFGH variant (kitti dataset, free-point "
+                        "network): thread data['calib'] through the forward")
     p.add_argument("--dp", action="store_true",
                    help="data-parallel eval fan-out; not ported (ROADMAP "
                         "queue 1, item 9)")
@@ -80,7 +82,7 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--test_rt is read by {' and '.join(_READS_TEST_RT)}, whose loaders are not "
             f"ported ({_ITEM5})")
-    if args.dataset != "kd_corr_nolidar":
+    if args.dataset not in ("kd_corr_nolidar", "kitti"):
         raise NotImplementedError(
             f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is "
             f"not ported ({_ITEM5})")
@@ -89,8 +91,6 @@ def _refuse_unported(args) -> None:
                       "(evaluate.py ignores it too)")
     if args.vis_rate > 0:
         raise NotImplementedError(f"--vis_rate: eval/visualize.py is not ported ({_ITEM5})")
-    if args.efgh:
-        raise NotImplementedError("--efgh: the efgh branch is not ported (ROADMAP queue 1, item 7)")
     if args.dp:
         raise NotImplementedError("--dp: the data-parallel fan-out is not ported "
                                   "(ROADMAP queue 1, item 9)")
@@ -101,7 +101,7 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
 
-    from i2pnet_tpu_torch.cli import build
+    from i2pnet_tpu_torch.cli import build, kitti_raw_dataset
     from i2pnet_tpu_torch.data import BatchLoader, KittiLargeRangeDataset
     from i2pnet_tpu_torch.eval import Evaluator, recall_analysis
     from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
@@ -115,10 +115,13 @@ def main(argv=None):
                               strict=True)
         models.append(model)
 
-    ds_args = dict(mode="test", seed=args.seed)
-    if args.tiny:
-        ds_args.update(img_H=64, img_W=128, sample_point=2048)
-    test_ds = KittiLargeRangeDataset(args.root_path, **ds_args)
+    if args.dataset == "kitti":
+        test_ds = kitti_raw_dataset(args, cfg, "test")
+    else:
+        ds_args = dict(mode="test", seed=args.seed)
+        if args.tiny:
+            ds_args.update(img_H=64, img_W=128, sample_point=2048)
+        test_ds = KittiLargeRangeDataset(args.root_path, **ds_args)
     loader = BatchLoader(test_ds, args.batch_size, shuffle=False, drop_last=False)
     evaluator = Evaluator(models, cfg, proj=proj, log_dir=args.log_dir, tag=args.tag,
                           device=args.device, debug_nans=args.debug_nans)

@@ -9,7 +9,9 @@ compose (ref evaluation_cmr.py:330-377). The files and the summary's keys
 are the JAX package's, so either package's ``analysis`` reads either's.
 
 One module per cascade stage: the models share a config and each holds its
-own weights. Every stage runs through ``train/step.py``'s eval step.
+own weights. Every stage runs through ``train/step.py``'s eval step, and
+every stage of an efgh cascade gets the batch's calibration matrix
+(``calib``) unchanged, only the cloud moves.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ SECTION = "§"  # section-sign framing (ref evaluation_proj.py:145-167)
 
 # the loader keys the forward reads; they alone go to the device, the
 # ground truth and the extrinsics stay on the host for the metrics
-MODEL_KEYS = ("rgb", "lidar", "lidar_feats", "raw_point_xyz", "init_intrinsic")
+MODEL_KEYS = ("rgb", "lidar", "lidar_feats", "raw_point_xyz", "init_intrinsic", "calib")
 
 
 class Evaluator:

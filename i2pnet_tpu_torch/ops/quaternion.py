@@ -94,3 +94,17 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
 def pose_to_matrix(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(q (B,4), t (B,3)) -> extrinsic (B, 3, 4)."""
     return torch.cat([quat_to_rotmat(q), t[..., None]], dim=-1)
+
+
+def project_with_calib(xyz: torch.Tensor, calib: torch.Tensor):
+    """Project points (B, N, 3) through a (B, 3or4, 4) calibration matrix to
+    its pixel plane -> (uvw (B,N,3), z (B,N,1)), in full f32 like the JAX
+    package's HIGHEST-precision einsum."""
+    cam = torch.einsum("bij,bnj->bni", calib[:, :3, :3], xyz) + calib[:, None, :3, 3]
+    z = cam[..., 2:3]
+    return cam / (z + _EPS), z
+
+
+def warp_with_calib(xyz: torch.Tensor, q: torch.Tensor, t: torch.Tensor, calib: torch.Tensor):
+    """Warp by (q, t), then ``project_with_calib``."""
+    return project_with_calib(warp_points(xyz, q, t), calib)

@@ -14,29 +14,53 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
-from i2pnet_tpu_torch.losses import projection_mask_loss, registration_loss
+from i2pnet_tpu_torch.losses import get_projection_gt, projection_mask_loss, registration_loss
 from i2pnet_tpu_torch.train.state import TrainState, clip_by_global_norm_
 
 
+def _compute_gt_project(batch, hw) -> torch.Tensor:
+    """The in-frustum labels of the batch's cloud under its ground-truth
+    decalibration, one-hot (B, N, 2) f32, computed on the device."""
+    labels = get_projection_gt(batch["lidar"], batch["intrinsic"], tuple(hw),
+                               batch["decalib_q_gt"], batch["decalib_t_gt"])
+    return F.one_hot(labels.long(), 2).float()
+
+
+def _delay_now_step(cfg: I2PNetConfig, step: int, device) -> Optional[torch.Tensor]:
+    """The delay counter at update ``step``, max(mask_delay_step - step, 0),
+    filled on the device; None (the model's fresh counter) unless
+    mask_delay or ab_delay is set. The count is the train state's, not a
+    module buffer."""
+    if not (cfg.mask_delay or cfg.ab_delay):
+        return None
+    return torch.full((), max(float(cfg.mask_delay_step) - float(step), 0.0), device=device)
+
+
 def _free_point_loss_fn(model, cfg: I2PNetConfig, img_size=None, train_target: str = "all"):
-    """loss(batch, generator) -> (loss, metrics), as ``_free_point_loss_fn``
-    of the JAX package. train_target picks the loss composition: 'all' is
-    registration + 1.5 * mask loss, 'regist' registration only, 'class' the
-    mask loss only (the port's model has no mask heads yet, so 'class'
-    raises and the others reduce to the registration loss)."""
+    """loss(batch, generator=None, step=0) -> (loss, metrics), as
+    ``_free_point_loss_fn`` of the JAX package. train_target picks the loss
+    composition: 'all' is registration + 1.5 * mask loss, 'regist'
+    registration only (the mask loss still logged), 'class' the mask loss
+    only; the mask loss weighs l4 by 1.6 and l3 by 0.8 where both heads
+    exist. Under ground_truth_projection_mask the batch's gt_project is
+    computed on the device when it has none; the delay counter follows the
+    update count ``step``."""
     if train_target not in ("all", "regist", "class"):
         raise ValueError(f"train_target must be all|regist|class, got {train_target}")
 
-    def loss_fn(batch, generator):
+    def loss_fn(batch, generator=None, step=0):
         hw = img_size or tuple(batch["rgb"].shape[1:3])
-        if batch.get("gt_project") is not None or cfg.ground_truth_projection_mask:
-            raise NotImplementedError("projection masks (gt_project) are not ported yet")
+        gt_project = batch.get("gt_project")
+        if gt_project is None and cfg.ground_truth_projection_mask:
+            gt_project = _compute_gt_project(batch, hw)
         out = model(
             batch["rgb"], batch["lidar"], batch["intrinsic"],
             lidar_feature=batch.get("lidar_feats"), raw_xyz=batch.get("raw_xyz"),
-            generator=generator,
+            gt_project=gt_project, now_step=_delay_now_step(cfg, step, batch["rgb"].device),
+            calib=batch.get("calib"), generator=generator,
         )
         reg_loss, loss_q, loss_x = registration_loss(
             out["out3"], out["out4"], batch["decalib_q_gt"], batch["decalib_t_gt"],
@@ -77,11 +101,13 @@ def _free_point_loss_fn(model, cfg: I2PNetConfig, img_size=None, train_target: s
 
 
 def _proj_loss_fn(model, cfg: I2PNetProjConfig):
-    """loss(batch, generator) -> (loss, metrics), as ``_proj_loss_fn`` of the
-    JAX package: the registration loss alone (the projection family has no
-    mask or delay branch); the batch also carries raw_xyz."""
+    """loss(batch, generator=None, step=0) -> (loss, metrics), as
+    ``_proj_loss_fn`` of the JAX package: the registration loss alone (the
+    projection family has no mask or delay branch); the batch also carries
+    raw_xyz."""
 
-    def loss_fn(batch, generator):
+    def loss_fn(batch, generator=None, step=0):
+        del step  # no mask or delay branch
         out = model(batch["rgb"], batch["lidar"], batch["raw_xyz"], batch["intrinsic"],
                     lidar_feature=batch.get("lidar_feats"), generator=generator)
         loss, loss_q, loss_x = registration_loss(
@@ -113,12 +139,18 @@ def _make_step(model, loss_fn, accum_steps: int = 1):
         metrics = []
         for i in range(accum_steps):
             loss, m = loss_fn({k: v[i * size:(i + 1) * size] for k, v in batch.items()},
-                              generator)
+                              generator, state.step)
             loss.backward()
             metrics.append(m)
         with torch.no_grad():
             for p in model.parameters():
-                if p.grad is not None:
+                if p.grad is None:
+                    # a parameter the loss does not reach (the pose heads
+                    # under 'class', the mask heads under 'regist'): a zero
+                    # gradient, which Adam's decay term still moves, as
+                    # optax moves it
+                    p.grad = torch.zeros_like(p)
+                else:
                     p.grad.div_(accum_steps)
         if state.clip > 0:
             clip_by_global_norm_(model.parameters(), state.clip)
@@ -136,7 +168,8 @@ def make_train_step(model, cfg: I2PNetConfig, img_size: Optional[Tuple[int, int]
 
     batch: dict of tensors on the model's device: rgb (B,H,W,3), lidar
     (B,N,3), intrinsic (B,3,3), decalib_q_gt (B,4), decalib_t_gt (B,3);
-    optional lidar_feats and raw_xyz (B,N,3). generator: a
+    optional lidar_feats and raw_xyz (B,N,3), gt_project (B,N,2) and calib
+    (B,3or4,4) (the efgh matrix). generator: a
     ``torch.Generator`` on that device for the dropout. ``state`` is a
     ``TrainState`` over ``model``; the step updates it in place.
     """
@@ -189,22 +222,30 @@ def make_eval_step_proj(model, cfg: I2PNetProjConfig):
     return eval_step
 
 
-def make_eval_step(model, cfg: I2PNetConfig):
+def make_eval_step(model, cfg: I2PNetConfig, state: Optional[TrainState] = None):
     """Returns ``eval_step(batch) -> out dict`` for ``I2PNet``: the model in
     eval mode under ``torch.inference_mode()``. batch: rgb, lidar,
-    intrinsic and optional lidar_feats and raw_xyz, tensors on the model's
-    device. The projection-mask inputs of the JAX step (``gt_project``,
-    the delay counter) are not ported: a config that needs them raises,
-    as the model does when built."""
-    if cfg.ground_truth_projection_mask_eval:
-        raise NotImplementedError("projection masks (gt_project) are not ported yet")
+    intrinsic and optional lidar_feats, raw_xyz, calib and gt_project,
+    tensors on the model's device.
+
+    With ``state``, the step validates as the JAX package's eval step: the
+    batch's gt_project (computed on the device under
+    ground_truth_projection_mask_eval when it has none) and the delay
+    counter at ``state.step``, read at each call. Without it, as the JAX
+    package's Evaluator forwards a cascade stage: no gt_project, the fresh
+    counter."""
 
     def eval_step(batch: dict) -> dict:
-        if batch.get("gt_project") is not None:
-            raise NotImplementedError("projection masks (gt_project) are not ported yet")
+        gt_project, now_step = None, None
+        if state is not None:
+            gt_project = batch.get("gt_project")
+            if gt_project is None and cfg.ground_truth_projection_mask_eval:
+                gt_project = _compute_gt_project(batch, batch["rgb"].shape[1:3])
+            now_step = _delay_now_step(cfg, state.step, batch["rgb"].device)
         model.eval()
         with torch.inference_mode():
             return model(batch["rgb"], batch["lidar"], batch["intrinsic"],
-                         lidar_feature=batch.get("lidar_feats"), raw_xyz=batch.get("raw_xyz"))
+                         lidar_feature=batch.get("lidar_feats"), raw_xyz=batch.get("raw_xyz"),
+                         gt_project=gt_project, now_step=now_step, calib=batch.get("calib"))
 
     return eval_step

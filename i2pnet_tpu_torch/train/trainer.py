@@ -10,10 +10,11 @@ in config.json, with the JAX package's file names and keys.
 The model is taken as built and never re-initialised (JAX's trainer
 initialises its variables from a sample batch; a port model loads them
 with ``convert.load_flax_variables``). Everything runs on ``device``, the
-card unless ``"cpu"`` is given. Not ported: the data-parallel mesh and the
-multi-process host slice (ROADMAP queue 1, item 9), and the projection-mask
-accuracy with ``train_target="class"`` (item 7): the port's model has no
-mask head, so ``acc`` is 0.0 as JAX reports without one.
+card unless ``"cpu"`` is given. Validation also gives the projection-mask
+accuracy ``acc`` of the mask head the JAX trainer reads (0.0 without one);
+with ``train_target="class"`` the run trains the mask heads alone and keeps
+``model_acc_best`` as its only snapshot. Not ported: the data-parallel
+mesh and the multi-process host slice (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from i2pnet_tpu_torch import metrics as M
 from i2pnet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device, to_model_batch
 from i2pnet_tpu_torch.eval.evaluator import MODEL_KEYS
+from i2pnet_tpu_torch.losses import get_projection_gt
 from i2pnet_tpu_torch.models.i2pnet import resolve_device
 from i2pnet_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
 from i2pnet_tpu_torch.train.state import create_train_state
@@ -69,15 +71,11 @@ class Trainer:
         step whose loss or updated parameters are not finite (one host
         synchronisation a step).
 
-        train_target: 'all' | 'regist' (the port's model has no mask head,
-        so both train the registration loss; 'class' raises).
+        train_target: 'all' (registration + mask loss), 'regist' or 'class'
+        (the mask heads alone).
         extra_valid_datasets: optional {prefix: dataset}, more validation
         splits, each with its own bests and snapshots
         ('{prefix}model_rotation_best', ...)."""
-        if train_target == "class":
-            raise NotImplementedError(
-                "train_target='class' trains the projection-mask heads, which are not ported "
-                "yet: ROADMAP queue 1, item 7")
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model_device.type != self.device.type:
@@ -129,7 +127,8 @@ class Trainer:
         # the plain steps are its one-microbatch case; B not divisible raises
         self._train_step = make_accum_train_step(model, cfg, accum_steps, proj=proj,
                                                  train_target=train_target)
-        self._eval_step = make_eval_step_proj(model, cfg) if proj else make_eval_step(model, cfg)
+        self._eval_step = (make_eval_step_proj(model, cfg) if proj
+                           else make_eval_step(model, cfg, self.state))
 
         self.ckpt = CheckpointManager(log_dir)
         self.start_epoch = 0
@@ -236,6 +235,12 @@ class Trainer:
         self.writer.text_log("log_rotate.txt", f"epoch {epoch} {prefix}rre {val['rre_mean']:.6f}")
         self.writer.text_log("log_trans.txt", f"epoch {epoch} {prefix}rte {val['rte_mean']:.6f}")
         snapshot = {"model": self.model.state_dict()}
+        if self.train_target == "class":
+            # a classification-only run tracks the mask accuracy alone
+            if val["acc"] > best["acc"]:
+                best["acc"] = val["acc"]
+                self.ckpt.save_best(f"{prefix}model_acc_best", snapshot)
+            return
         if val["rre_mean"] < best["rotation"]:
             best["rotation"] = val["rre_mean"]
             self.ckpt.save_best(f"{prefix}model_rotation_best", snapshot)
@@ -247,16 +252,50 @@ class Trainer:
             self.ckpt.save_best(f"{prefix}model_msee_best", snapshot)
         best["acc"] = max(best["acc"], val["acc"])
 
+    def _mask_accuracy(self, out, mb, batch) -> Optional[np.ndarray]:
+        """Per-sample projection-mask accuracy of one validation batch, of
+        the head the JAX trainer reads: pm3 where layer_mask[1], else pm4
+        where layer_mask[0] (under use_projection_mask), or pm3 of a
+        one_head_mask model (without the sigmoid flag); None without one.
+        The labels are the head's gt_project, or recomputed at its own
+        points under the batch's ground truth."""
+        cfg = self.cfg
+        if self.proj:
+            return None
+        if cfg.use_projection_mask:
+            if out.get("pm3") is not None and cfg.layer_mask[1]:
+                pm, sigmoid = out["pm3"], cfg.mask_sigmoid
+            elif out.get("pm4") is not None and cfg.layer_mask[0]:
+                pm, sigmoid = out["pm4"], cfg.mask_sigmoid
+            else:
+                return None
+        elif out.get("pm3") is not None and cfg.one_head_mask:
+            pm, sigmoid = out["pm3"], False
+        else:
+            return None
+        if len(pm) >= 3 and pm[2] is not None:
+            l_gt = pm[2].argmax(-1)
+        else:
+            q_gt, t_gt = (torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                          for k in ("decalib_real_gt", "decalib_dual_gt"))
+            l_gt = get_projection_gt(pm[1], mb["intrinsic"], tuple(mb["rgb"].shape[1:3]),
+                                     q_gt, t_gt)
+        return M.eval_acc(pm[0].float().cpu().numpy(), l_gt.cpu().numpy(), sigmoid=sigmoid)
+
     def validate(self, loader=None) -> Dict[str, float]:
         """RTE/RRE, the per-axis calibration errors, MSEE and ``acc`` over
         one split (the main one unless ``loader`` is given), with the JAX
         trainer's keys; every value a Python float."""
         ev = M.RteRreEval()
-        axis_errs, msees = [], []
+        axis_errs, msees, accs = [], [], []
         loader = loader if loader is not None else self.valid_loader
         for batch in prefetch_to_device(loader, self.device, keys=MODEL_KEYS):
             mb = to_model_batch({k: v for k, v in batch.items() if isinstance(v, torch.Tensor)})
-            out3 = self._eval_step(mb)["out3"].float().cpu().numpy()
+            out = self._eval_step(mb)
+            acc = self._mask_accuracy(out, mb, batch)
+            if acc is not None:
+                accs.append(acc)
+            out3 = out["out3"].float().cpu().numpy()
             gt_q = np.asarray(batch["decalib_real_gt"])
             gt_t = np.asarray(batch["decalib_dual_gt"])
             pred_E, gt_E = M.get_extrinsic(out3, gt_q, gt_t, np.asarray(batch["init_extrinsic"]))
@@ -274,6 +313,7 @@ class Trainer:
             "roll_deg": axis[0], "pitch_deg": axis[1], "yaw_deg": axis[2],
             "x_m": axis[3], "y_m": axis[4], "z_m": axis[5],
             "msee": np.concatenate(msees).mean(),
-            "acc": 0.0,  # no mask head (module docstring)
+            # 0.0 without a mask head, as the JAX trainer reports
+            "acc": np.concatenate(accs).mean() if accs else 0.0,
         }
         return {k: float(v) for k, v in val.items()}

@@ -77,8 +77,11 @@ def _uint8(shape, seed):
 
 
 # (in_h, in_w, out_h, out_w): the large-range loader's crops of the KITTI
-# image at scale 0.5 (rows 376 and 326 after the 50-row crop), and two others
+# image at scale 0.5 (rows 376 and 326 after the 50-row crop), the raw
+# online-calibration loader's resizes of a raw frame (the protocol's and the
+# tiny size), and two others
 @pytest.mark.parametrize("h,w,oh,ow", [(326, 1241, 163, 620), (376, 1241, 188, 620),
+                                       (375, 1242, 352, 1216), (375, 1242, 64, 128),
                                        (64, 128, 32, 64), (37, 91, 13, 200)])
 def test_resize_image_equals_cv2(h, w, oh, ow):
     img = _uint8((h, w, 3), h + w)

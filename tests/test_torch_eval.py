@@ -45,7 +45,8 @@ from i2pnet_tpu_torch.eval import Evaluator
 from i2pnet_tpu_torch.eval import analysis
 from i2pnet_tpu_torch.models import I2PNet, I2PNetProj
 from i2pnet_tpu_torch.ops import fps_cuda, quaternion as Q, se3
-from i2pnet_tpu_torch.train import make_eval_step, make_eval_step_proj
+from i2pnet_tpu_torch.losses import get_projection_gt
+from i2pnet_tpu_torch.train import create_train_state, make_eval_step, make_eval_step_proj
 from i2pnet_tpu_torch.train.checkpoint import CheckpointManager, restore_inference_variables
 from i2pnet_tpu_torch.utils.seeding import set_seed
 from _torch_util import n, port, randomize_stats, t
@@ -214,8 +215,19 @@ def test_eval_steps_and_seed():
     with torch.no_grad():
         ref = model(rgb, lidar, intr)
     assert torch.equal(out["out3"], ref["out3"]) and torch.equal(out["out4"], ref["out4"])
-    with pytest.raises(NotImplementedError):
-        make_eval_step(model, dataclasses.replace(model.cfg, ground_truth_projection_mask_eval=True))
+    # a trainer's step (with its state) under ground_truth_projection_mask_eval
+    # feeds the model the batch's in-frustum labels, computed on the device
+    cfg = dataclasses.replace(model.cfg, ground_truth_projection_mask_eval=True)
+    gt_q = t(np.tile(np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), (2, 1)))
+    gt_t = t(np.tile(np.array([[0.3, -0.1, 0.2]], np.float32), (2, 1)))
+    batch = {"rgb": rgb, "lidar": lidar, "intrinsic": intr, "decalib_q_gt": gt_q,
+             "decalib_t_gt": gt_t}
+    out = make_eval_step(model, cfg, create_train_state(model))(batch)
+    gt = torch.nn.functional.one_hot(
+        get_projection_gt(lidar, intr, (H, W), gt_q, gt_t).long(), 2).float()
+    with torch.no_grad():
+        masked = model(rgb, lidar, intr, gt_project=gt)
+    assert torch.equal(out["out3"], masked["out3"]) and not torch.equal(out["out3"], ref["out3"])
 
     pmodel = I2PNetProj(I2PNetProjConfig.tiny(), device="cpu")
     raw = t((rng.normal(size=(2, 512, 3)) * 10).astype(np.float32))

@@ -110,10 +110,15 @@ def test_jax_checkpoint_evaluates_through_the_port(tmp_path, monkeypatch):
 def test_evaluate_torch_refuses_what_is_not_ported(tmp_path):
     base = ["--model_dir", str(tmp_path), "--device", "cpu"]
     for extra, match in ((["--dataset", "kd_cmr_snr"], "item 5"), (["--dp"], "item 9"),
-                         (["--vis_rate", "2"], "item 5"), (["--efgh"], "item 7"),
+                         (["--vis_rate", "2"], "item 5"), (["--dataset", "nus_corr_nolidar"],
+                                                          "item 5"),
                          (["--dataset", "kd_cmr_snr", "--test_rt", "rt.csv"],
                           "nus_cmr_snr.*item 5")):
         with pytest.raises(NotImplementedError, match=match):
+            evaluate_torch.main(base + extra)
+    # --efgh needs --dataset kitti and the free-point network, as evaluate.py
+    for extra in (["--efgh"], ["--efgh", "--dataset", "kitti"]):
+        with pytest.raises(SystemExit, match="--efgh needs"):
             evaluate_torch.main(base + extra)
     # the same flags and defaults as evaluate.py, and --device (the card)
     assert evaluate_torch.parse_args(["--model_dir", "x"]).device == "cuda"

@@ -104,12 +104,16 @@ def test_slice_routes_the_fused_paths_in_bf16(slice_run, monkeypatch):
 
 
 def test_model_refuses_unported_branches():
-    """The unported branches raise; a train-mode forward (an nn.Module
+    """efgh together with projection masks raises ValueError, as the JAX
+    model does (and efgh without calib); a train-mode forward (an nn.Module
     starts in training mode) runs with a dropout generator and moves every
     BatchNorm's running statistics."""
-    for kw in (dict(efgh=True), dict(use_projection_mask=True), dict(cost_volume_corr_func="concat")):
-        with pytest.raises(NotImplementedError):
-            I2PNet(dataclasses.replace(I2PNetConfig.tiny(), **kw), device="cpu")
+    for kw in (dict(use_projection_mask=True), dict(ground_truth_projection_mask=True),
+               dict(ground_truth_projection_mask_eval=True)):
+        with pytest.raises(ValueError, match="exclusive"):
+            I2PNet(dataclasses.replace(I2PNetConfig.tiny(), efgh=True, **kw), device="cpu")
+    with pytest.raises(ValueError, match="calib"):
+        I2PNet(dataclasses.replace(I2PNetConfig.tiny(), efgh=True), device="cpu")(*map(t, _inputs()))
     model = I2PNet(I2PNetConfig.tiny(), device="cpu")
     before = {k: b.clone() for k, b in model.named_buffers()}
     out = model(*map(t, _inputs()), generator=torch.Generator().manual_seed(0))

@@ -2,9 +2,12 @@
 """Training CLI of the PyTorch / CUDA port: the twin of ``train.py``, with
 the same flags and defaults and ``--device``.
 
-Builds the model (``i2pnet_tpu_torch/cli.py`` ``build``) and the KITTI
-large-range training and validation splits (``build_datasets``,
-``--dataset kd_corr_nolidar``), then runs the port's ``Trainer``: per-epoch
+Builds the model (``i2pnet_tpu_torch/cli.py`` ``build``) and the datasets
+(``build_datasets``): the KITTI large-range training and validation splits
+(``--dataset kd_corr_nolidar``) or the raw online-calibration training
+drives (``--dataset kitti``, no validation; ``--efgh`` threads each
+sample's calibration matrix through the model), then runs the port's
+``Trainer`` (``--train_target class`` trains the mask heads alone): per-epoch
 checkpoints with the optimizer state under ``<log_dir>/torch/``, validation
 and named best snapshots, config.json, metrics.jsonl and the text logs.
 ``--resume`` continues from the newest epoch checkpoint, also one that
@@ -13,6 +16,8 @@ card unless ``--device cpu`` is given.
 
     python3 train_torch.py --dataset kd_corr_nolidar --network i2pnet_proj \\
         --compute_dtype bfloat16 --num_workers 4 --log_dir log/proj
+    python3 train_torch.py --dataset kitti --efgh --compute_dtype bfloat16 \\
+        --root_path /dataset/kitti/raw --log_dir log/efgh
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import argparse
 
 _ITEM5 = "ROADMAP queue 1, item 5"
-_ITEM7 = "ROADMAP queue 1, item 7"
+_PORTED_DATASETS = ("kd_corr_nolidar", "kitti")
 
 
 def parse_args(argv=None):
@@ -28,7 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--dataset", default="kd_cmr_snr",
                    choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
                             "kd_corr_nolidar", "nus_corr_nolidar"],
-                   help="only kd_corr_nolidar is ported; the others raise "
+                   help="kd_corr_nolidar and kitti are ported; the others raise "
                         f"NotImplementedError ({_ITEM5})")
     p.add_argument("--network", default="i2pnet",
                    choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
@@ -55,24 +60,22 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=0,
                    help="batch-assembly worker processes (0 = one thread)")
     p.add_argument("--train_target", default="all", choices=["all", "regist", "class"],
-                   help="loss composition; 'class' (the mask heads) is not ported "
-                        f"({_ITEM7})")
+                   help="loss composition: registration+mask, registration only, or "
+                        "mask-classification only")
     p.add_argument("--efgh", action="store_true",
-                   help=f"online-calibration EFGH variant; not ported ({_ITEM7})")
+                   help="online-calibration EFGH variant: thread a per-sample projection "
+                        "matrix (data['calib']) through the free-point model (--dataset "
+                        "kitti only)")
     p.add_argument("--device", default="cuda",
                    help="the device the model trains on (cuda, or cpu)")
     return p.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if args.dataset != "kd_corr_nolidar":
+    if args.dataset not in _PORTED_DATASETS:
         raise NotImplementedError(
             f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is not ported "
             f"({_ITEM5})")
-    if args.efgh:
-        raise NotImplementedError(f"--efgh: the efgh branch is not ported ({_ITEM7})")
-    if args.train_target == "class":
-        raise NotImplementedError(f"--train_target class: the mask heads are not ported ({_ITEM7})")
 
 
 def main(argv=None):

@@ -13,7 +13,9 @@ evaluation entry point, both families' 2-stage cascades through
 ``evaluate_torch.py`` and ``Evaluator`` at the same shapes; then the
 training entry point, ``train_torch.py`` and the ``Trainer``, and a short
 convergence run; then the online-calibration model and the projection-mask
-and option branches. Phases, each raising on failure:
+and option branches; then the vehicle-localisation protocols (KITTI
+odometry small-range, nuScenes small- and large-range) through their
+loaders and entry points. Phases, each raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -155,7 +157,40 @@ and option branches. Phases, each raising on failure:
    each option: the ``concat`` and ``cosine`` correlations, ``max_cost``,
    ``backward_fc`` (cv1 0: JAX fuses none of them) and non-empty pose-head
    MLPs with each ``head_corr_func``, with and without the position
-   embedding (cv1 1).
+   embedding (cv1 1);
+24. the KITTI odometry small-range protocol (``kd_cmr_snr``, ``i2pnet``:
+   ``train_torch.py``'s defaults) from a tree on disk (sequence 03 with 24
+   frames, 00 with 16; local maps of 120,000 points of a street, 376x1241
+   frames, calib.txt; the 10-seed protocol's per-seed pickles):
+   ``train_torch.main`` in bf16 at B=8 for 2 epochs of 3 steps (the first
+   step's kernel calls against their plain versions, every parameter and
+   statistic moved), then ``scripts/cmr_test_torch.sh``'s protocol in
+   process (``evaluate_torch.main`` for each of 10 seeds, its pickle read by
+   ``load_test_rt``; seed 0's kernel calls against their plain versions, its
+   out3 finite with unit quaternions), ``aggregate_seeds`` over the ten
+   prediction files, and the evaluator's mean_fps on seed 0's split
+   repeated 6 times with no capture on;
+25. nuScenes large-range (``nus_corr_nolidar``) on
+   ``I2PNetProjConfig.nuscenes()`` in bf16 at B=8: 16 maps of 100k-150k
+   points (zero-padded to 150,000) and 900x1600 frames cropped to 160x512
+   by the loader; the eager forward and its CUDA-graph replay, each
+   repeated bit for bit (select 5 on the 32-row grid, encoder block 15;
+   every call against its plain version), the train step (dropout, Adam;
+   the train kernels' launches and calls) and a 2-stage ``Evaluator`` over
+   the 16 test pairs;
+26. nuScenes small-range (``nus_cmr_snr``) on the shipped free config in
+   bf16 at B=8 and the loader's 640x1280, 8192 points drawn from maps of
+   50k-80k: the eager forward and its graph replay (FPS 4, encoder block
+   15, cv1 1 at K = 20x40 = 800; every call against its plain version),
+   the train step (every call against its plain version at 640x1280;
+   timed, with ``torch.cuda.max_memory_allocated``), and
+   ``evaluate_torch.main`` with a ``--test_rt`` CSV in the reference's
+   ``id,tx,ty,tz,rx,ry,rz`` layout.
+
+The script assumes no h5py or PIL: phases 24-26 stand in for the
+loaders' map read (``read_local_map``) and nuScenes' frame decode
+(``read_image``) alone, on files numpy wrote under the loaders' names, and
+time each kernel's calls on the new paths (``new_paths`` in the JSON line).
 
 Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
 its conv, and phase 4 gives cv1's TFLOP/s.
@@ -979,9 +1014,10 @@ def check_cascade(models, batch, proj: bool, recorded, label: str) -> None:
           f"bit for bit")
 
 
-def check_eval_outputs(summary, log_dir: str, count: int, label: str) -> None:
-    """A finite summary of `count` pairs; prediction.txt with one section a
-    pair, parsed by the port's analysis; the metrics npz read back."""
+def check_eval_outputs(summary, log_dir: str, count: int, label: str, tag: str = "") -> None:
+    """A finite summary of `count` pairs; prediction<tag>.txt with one
+    section a pair, parsed by the port's analysis; the newest metrics npz
+    read back (the only one, unless runs share the log dir)."""
     import glob
     import math
 
@@ -991,16 +1027,17 @@ def check_eval_outputs(summary, log_dir: str, count: int, label: str) -> None:
               and not math.isfinite(float(v))]
     check(not finite and summary["count"] == count and not summary["timing_includes_compile"],
           f"{label}: summary {summary}")
-    path = os.path.join(log_dir, "prediction.txt")
+    path = os.path.join(log_dir, f"prediction{tag}.txt")
     with open(path) as f:
         sections = sum(line.startswith(SECTION) for line in f)
     parsed = parse_prediction_file(path)
     check(sections == count and parsed["pred"].shape == (count, 3, 4),
-          f"{label}: prediction.txt has {sections} sections")
+          f"{label}: prediction{tag}.txt has {sections} sections")
     npz = glob.glob(os.path.join(log_dir, "metrics_*.npz"))
-    check(len(npz) == 1 and recall_analysis(npz[0])["count"] == count, f"{label}: metrics npz")
-    print(f"{label}: summary finite, count {count}; prediction.txt {sections} sections, parsed; "
-          f"metrics npz read back; rre_mean {summary['rre_mean']:.3f} deg, rte_mean "
+    check((len(npz) == 1 or tag) and recall_analysis(max(npz, key=os.path.getmtime))["count"]
+          == count, f"{label}: metrics npz")
+    print(f"{label}: summary finite, count {count}; prediction{tag}.txt {sections} sections, "
+          f"parsed; metrics npz read back; rre_mean {summary['rre_mean']:.3f} deg, rte_mean "
           f"{summary['rte_mean']:.3f} m")
 
 
@@ -1039,17 +1076,12 @@ class FirstCalls:
         self.captures, self.launches = {}, {}
 
     def wrap(self, label, step):
-        import contextlib
-
         import torch
 
         def wrapped(*args):
             if label in self.launches:
                 return step(*args)
-            caps = {k["name"]: Capture(k["module"], k["fn"]) for k in self.kernels[label]}
-            with contextlib.ExitStack() as stack:
-                for cap in caps.values():
-                    stack.enter_context(cap)
+            with Captures(self.kernels[label]) as caps:
                 torch.cuda.synchronize()
                 before = self.read_counts()
                 out = step(*args)
@@ -1089,6 +1121,7 @@ def check_first_calls(first, want_step, want_eval, label: str) -> None:
           f"{label}: launches in the first step {first.launches.get('step')}")
     check(first.launches.get("eval") == want_eval,
           f"{label}: launches in the first validation batch {first.launches.get('eval')}")
+    evals = compact(want_eval) if want_eval is not None else "none (no validation split)"
     with torch.no_grad():
         for step, caps in first.captures.items():
             for k in first.kernels[step]:
@@ -1104,7 +1137,7 @@ def check_first_calls(first, want_step, want_eval, label: str) -> None:
                     print(f"{name}: {len(calls)} calls match the plain version, max abs err "
                           f"{err:.3e}")
     print(f"{label}: the first step's launches {compact(want_step)}, the first validation "
-          f"batch's {compact(want_eval)}; every call held against its plain version")
+          f"batch's {evals}; every call held against its plain version")
 
 
 def compact(counts) -> dict:
@@ -1588,10 +1621,9 @@ def efgh_phase(ctx, work: str) -> None:
     def forward():
         return model(rgb, lidar, k, calib=calib)
 
-    caps = {kern["name"]: Capture(kern["module"], kern["fn"]) for kern in ctx.eval_kernels}
     errors = {}
     with torch.no_grad():
-        with caps["fps"], caps["encoder_block"], caps["cv1"]:
+        with Captures(ctx.eval_kernels) as caps:
             out = ctx.launches_of("efgh_eval", FREE_VAL_LAUNCHES, forward)
         out2 = forward()
         torch.cuda.synchronize()
@@ -1643,19 +1675,10 @@ def efgh_phase(ctx, work: str) -> None:
     batch = identity_gt({"rgb": rgb, "lidar": lidar, "intrinsic": k, "calib": calib}, ctx.dev)
     params0 = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
     buffers0 = {n: b.clone() for n, b in tmodel.named_buffers()}
-    caps = {kern["name"]: Capture(kern["module"], kern["fn"]) for kern in ctx.train_kernels}
-    with (caps["conv_fwd"], caps["conv_dx"], caps["conv_dw"], caps["bn_pool_fwd"],
-          caps["bn_pool_bwd"]):
+    with Captures(ctx.train_kernels) as caps:
         metrics = ctx.launches_of("efgh_train", TRAIN_LAUNCHES, lambda: step(state, batch, gen))
     check_step_moved(tmodel, params0, buffers0, metrics, "phase 21 efgh train step")
-    with torch.no_grad():
-        for kern in ctx.train_kernels:
-            err = train_kernel_error(kern["name"], getattr(kern["module"], kern["fn"]),
-                                     getattr(kern["module"], kern["plain"]),
-                                     caps[kern["name"]].calls)
-            print(f"phase 21 {kern['name']}: {len(caps[kern['name']].calls)} calls at "
-                  f"{EFGH_H}x{EFGH_W} match the plain version, max abs err {err:.3e}")
-            errors[kern["name"]] = err
+    errors.update(hold_train_calls(ctx, caps, f"phase 21 ({EFGH_H}x{EFGH_W})"))
     del caps, params0, buffers0
     print(f"phase 21 efgh train step: loss {float(metrics['loss']):.6f}; every parameter and "
           f"statistic moved")
@@ -1764,6 +1787,627 @@ def option_grid(ctx, inputs) -> None:
         del model, out
 
 
+# phases 24-26: the vehicle-localisation protocols on trees written with
+# numpy. The script assumes no h5py or PIL, so each phase stands in for
+# the one function of its loader that reads a local map (h5py) and, on
+# nuScenes, the one that decodes a camera frame (PIL): the phase writes
+# those files with numpy under the names the loaders look for, and its
+# stand-ins read them back with np.load. Everything else is the port's own
+# code: the loaders' sampling, decalibration, crop, resize and
+# normalisation, load_test_rt, BatchLoader and the pinned prefetch, the CLIs
+# and their factories, the Trainer, the Evaluator and the checkpoints.
+CMR_FRAMES = {3: 24, 0: 16}  # KITTI odometry sequence 03 (training) and 00 (test)
+CMR_MAP_POINTS = 120000
+CMR_STEPS = 2 * (CMR_FRAMES[3] // BATCH)  # 2 epochs of 3 steps
+CMR_SEEDS = tuple(range(10))
+CMR_TEST_BATCHES = CMR_FRAMES[0] // BATCH
+CMR_TIMED_REPEATS = 6
+NUS_ENTRIES, NUS_FRAME = 16, (900, 1600, 3)
+NUS_LARGE_POINTS, NUS_CMR_POINTS = (100000, 150000), (50000, 80000)
+# nuScenes' CAM_FRONT camera; LIDAR_TOP (x right, y ahead, z up) to the
+# camera (x right, y down, z ahead), 0.3 m below and 0.7 m behind it
+NUS_K = ((1266.417, 0.0, 816.267), (0.0, 1266.417, 491.507), (0.0, 0.0, 1.0))
+NUS_VELO2CAM = ((1.0, 0.0, 0.0, 0.0), (0.0, 0.0, -1.0, -0.3), (0.0, 1.0, 0.0, -0.7),
+                (0.0, 0.0, 0.0, 1.0))
+NUS_EVALUATOR_LAUNCHES = {k: v * EVAL_STAGES * (NUS_ENTRIES // BATCH)
+                          for k, v in PROJ_VAL_LAUNCHES.items()}
+KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def read_npz_map(path: str):
+    """Stands in for ``data/kitti_odometry_cmr.py`` ``read_local_map`` (h5py):
+    the map's 'PC' rows 0-2 and its 'intensity', from an npz written under
+    the map's .h5 name."""
+    import numpy as np
+
+    with np.load(path) as z:
+        return z["PC"][:3].astype(np.float32), z["intensity"].astype(np.float32)
+
+
+def read_npy_frame(path: str):
+    """Stands in for ``data/nuscenes.py`` ``read_image`` (PIL): the uint8
+    frame, from an .npy written under the frame's .jpg name."""
+    import numpy as np
+
+    return np.load(path)
+
+
+class StandIns:
+    """The map read (and, with ``frames``, nuScenes' frame decode) replaced
+    by ``read_npz_map`` / ``read_npy_frame`` while active."""
+
+    def __init__(self, label: str, frames: bool = False):
+        self.label, self.frames = label, frames
+
+    def __enter__(self):
+        from i2pnet_tpu_torch.data import kitti_odometry_cmr, nuscenes
+
+        self.saved = [(kitti_odometry_cmr, "read_local_map", read_npz_map)]
+        if self.frames:
+            self.saved.append((nuscenes, "read_image", read_npy_frame))
+        self.saved = [(m, name, getattr(m, name), new) for m, name, new in self.saved]
+        for m, name, _, new in self.saved:
+            setattr(m, name, new)
+        names = " and ".join(f"{m.__name__.split('.')[-1]}.{name}" for m, name, _, _ in self.saved)
+        print(f"{self.label} stands in for {names} (h5py{' and PIL' if self.frames else ''}, "
+              f"which the script does not assume installed): the files were written with numpy "
+              f"under the loader's names and are read with np.load; the rest of the loader is "
+              f"the port's")
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, old, _ in self.saved:
+            setattr(m, name, old)
+
+
+def street_map(rng, count: int, low: float = 5.0, high: float = 60.0):
+    """(3, count) f32 points of a street around a car in the KITTI velodyne
+    frame (x ahead, y left, z up), horizontal ranges low-high m: the road
+    1.73 m below the sensor (45%), facades 6-12 m to either side up to 9 m
+    high (45%), poles and parked cars between (10%)."""
+    import numpy as np
+
+    m = 3 * count
+    kind = rng.uniform(size=m)
+    x = rng.uniform(-high, high, m)
+    side = np.where(rng.uniform(size=m) < 0.5, -1.0, 1.0)
+    y = np.where(kind < 0.45, rng.uniform(-12, 12, m),
+                 side * np.where(kind < 0.9, rng.uniform(6, 12, m), rng.uniform(2.5, 6, m)))
+    z = np.where(kind < 0.45, -1.73 + rng.normal(0, 0.03, m),
+                 np.where(kind < 0.9, rng.uniform(-1.73, 7.3, m), rng.uniform(-1.73, 1.5, m)))
+    r = np.hypot(x, y)
+    pts = np.stack([x, y, z])[:, (r >= low) & (r <= high)]
+    check(pts.shape[1] >= count, f"street_map: {pts.shape[1]} points, {count} wanted")
+    return pts[:, :count].astype(np.float32)
+
+
+def write_map(path: str, pc, rng) -> None:
+    """A local map ('PC' (4, N) with a row of ones, 'intensity' (1, N)) as
+    an npz under ``path``."""
+    import numpy as np
+
+    n = pc.shape[1]
+    with open(path, "wb") as f:
+        np.savez(f, PC=np.vstack([pc, np.ones((1, n), np.float32)]),
+                 intensity=rng.uniform(0, 1, (1, n)).astype(np.float32))
+
+
+def write_cmr_tree(root: str, rt_dir: str) -> None:
+    """The KITTI odometry CMR loader's layout: sequences 03 and 00 with
+    their local maps (CMR_MAP_POINTS points of a street each), 376x1241
+    uint8 frames as .npy and calib.txt; and the 10-seed protocol's per-seed
+    pickles (``generate_test_rt`` rows, rx first) at ``cmr_test_rt_path``,
+    one a file name: the protocol's tags repeat (0 for every even seed)."""
+    import pickle
+
+    import numpy as np
+
+    from i2pnet_tpu_torch.data.preprocess import cmr_test_rt_path, generate_test_rt
+
+    rng = np.random.default_rng(SEED + 24)
+    for seq, count in CMR_FRAMES.items():
+        seq_dir = os.path.join(root, "kitti_processed_CMRNet", "sequences", "%02d" % seq)
+        for sub in ("local_maps", "image_2_npy"):
+            os.makedirs(os.path.join(seq_dir, sub))
+        with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+            f.write(KITTI_CALIB)
+        for fi in range(count):
+            write_map(os.path.join(seq_dir, "local_maps", "%06d.h5" % fi),
+                      street_map(rng, CMR_MAP_POINTS), rng)
+            np.save(os.path.join(seq_dir, "image_2_npy", "%06d.npy" % fi),
+                    rng.integers(0, 256, size=(376, 1241, 3), dtype=np.uint8))
+    os.makedirs(rt_dir)
+    for seed in CMR_SEEDS:
+        path = cmr_test_rt_path(rt_dir, "00", 10.0, 2.0, seed)
+        if not os.path.exists(path):
+            with open(path, "wb") as f:
+                pickle.dump(generate_test_rt(CMR_FRAMES[0], seed=seed).tolist(), f)
+
+
+def write_nus_tree(root: str, points, frames_dir=None) -> str:
+    """The nuScenes loaders' layout: NUS_ENTRIES local maps (``points``, a
+    (low, high) count each, of a street in LIDAR_TOP's frame), CAM_FRONT
+    frames of 900x1600x3 uint8 as .npy under .jpg names (written unless
+    ``frames_dir`` holds them: absolute camera paths, as the split lists
+    keep them), and train_dataset0.list / test_dataset0.list over the same
+    entries, ((map_relpath, cam_path), K, velo2cam2, meta). Returns the
+    frames' directory."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 25 + points[0] % 7)
+    os.makedirs(os.path.join(root, "maps"))
+    write_frames = frames_dir is None
+    frames_dir = frames_dir or os.path.join(root, "samples", "CAM_FRONT")
+    os.makedirs(frames_dir, exist_ok=True)
+    entries = []
+    for i in range(NUS_ENTRIES):
+        pc = street_map(rng, int(rng.integers(points[0], points[1] + 1)))
+        write_map(os.path.join(root, "maps", f"{i}.h5"), np.stack([-pc[1], pc[0], pc[2]]), rng)
+        cam = os.path.join(frames_dir, f"{i}.jpg")
+        if write_frames:
+            with open(cam, "wb") as f:
+                np.save(f, rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8))
+        entries.append(((f"maps/{i}.h5", cam), np.array(NUS_K), np.array(NUS_VELO2CAM),
+                        {"token": f"{i:032x}"}))
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"{split}_dataset0.list"), "wb") as f:
+            pickle.dump(entries, f)
+    return frames_dir
+
+
+def shape_rows(ctx, label: str, kernels, captures, launches, errors) -> dict:
+    """Each kernel's calls on a new path timed as the table's rows are
+    (``kernel_row``: graph replay of the kernel, its plain version and the
+    library call, the bound from these inputs): {name: {label: numbers}}."""
+    import torch
+
+    with torch.no_grad():
+        rows = {k["name"]: kernel_row(k, launches[k["name"]], errors[k["name"]],
+                                      captures[k["name"]].calls, ctx.card) for k in kernels}
+    return {name: {label: {key: r[key] for key in KERNEL_KEYS}} for name, r in rows.items()}
+
+
+class Captures(dict):
+    """A Capture of each kernel, by name, all active together."""
+
+    def __init__(self, kernels):
+        super().__init__((k["name"], Capture(k["module"], k["fn"])) for k in kernels)
+
+    def __enter__(self):
+        for cap in self.values():
+            cap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for cap in self.values():
+            cap.__exit__(*exc)
+
+
+def forward_and_replay(fwd, label: str, card: str):
+    """fwd() twice eagerly (out3 identical, checked by check_outputs) and
+    captured in a CUDA graph replayed twice (out3 identical); prints the
+    eager and replayed times and whether the replay equals the eager out3."""
+    import torch
+
+    with torch.no_grad():
+        out, out2 = fwd(), fwd()
+        torch.cuda.synchronize()
+        check_outputs(out, out2, label)
+        held = {}
+        graph = graph_of(lambda: held.__setitem__("out", fwd()))
+        graph.replay()
+        r1 = held["out"]["out3"].clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(r1, held["out"]["out3"]), f"{label}: two graph replays differ")
+        gap = float((r1 - out["out3"]).abs().max())
+        eager_ms, spread = windows_ms(fwd)
+        graph_ms = cuda_ms(graph.replay, ITERS)
+    print(f"{label}: two replays of its CUDA graph bit-identical; replay against the eager out3: "
+          f"max abs {gap:.3e}{' (equal)' if gap == 0 else ''}")
+    print(f"{label} forward: {eager_ms:.3f} ms/batch eager ({BATCH * 1000.0 / eager_ms:.2f} "
+          f"pairs/s, spread {spread:.1f}%), {graph_ms:.3f} ms/batch under CUDA-graph replay "
+          f"({BATCH * 1000.0 / graph_ms:.2f} pairs/s) at B={BATCH} on {card}")
+    return out
+
+
+def hold_train_calls(ctx, caps, label: str) -> dict:
+    """Every train-kernel call of a step against its plain version (phase 6's
+    bars); FPS exactly. Returns each kernel's worst error."""
+    import torch
+
+    errors = {}
+    with torch.no_grad():
+        for k in ctx.train_kernels:
+            errors[k["name"]] = train_kernel_error(
+                k["name"], getattr(k["module"], k["fn"]), getattr(k["module"], k["plain"]),
+                caps[k["name"]].calls)
+            print(f"{label} {k['name']}: {len(caps[k['name']].calls)} calls match the plain "
+                  f"version, max abs err {errors[k['name']]:.3e}")
+        if "fps" in caps:
+            errors["fps"] = eval_kernel_error("fps", ctx.fps["module"].fps_plain, caps["fps"].calls)
+    return errors
+
+
+def knn_ties(calls, label: str) -> None:
+    """Every knn_point call against the int64-key top-k over its whole row
+    (``knn_by_key``) on the same distances: equal, index for index; prints
+    how many queries had ties across the k-th place."""
+    import torch
+
+    from i2pnet_tpu_torch.ops import pointops
+
+    straddle = 0
+    with torch.no_grad():
+        for (k, xyz, q), got in calls:
+            d = pointops.square_distance(q, xyz)
+            check(torch.equal(got, pointops.knn_by_key(k, d)),
+                  f"{label}: knn_point({k}, {tuple(xyz.shape)}, {tuple(q.shape)}) differs from "
+                  f"the key top-k")
+            if k < d.shape[-1]:
+                near = torch.topk(d, k + 1, dim=-1, largest=False).values
+                straddle += int((near[..., k - 1] == near[..., k]).sum())
+    print(f"{label}: {len(calls)} knn_point calls equal to the int64-key top-k over each row; "
+          f"{straddle} queries with ties across the k-th place")
+
+
+def cmr_phase(ctx, work: str) -> dict:
+    """Phase 24: the KITTI odometry small-range protocol with train_torch.py's
+    defaults (kd_cmr_snr, i2pnet) in bf16 at B=8: 2 epochs of 3 steps on
+    sequence 03, then scripts/cmr_test_torch.sh's 10-seed protocol in
+    process over sequence 00 (evaluate_torch.py, each seed's pickle read by
+    load_test_rt), aggregate_seeds over the ten prediction files, and the
+    Evaluator's throughput on seed 0's split repeated."""
+    import math
+
+    import torch
+
+    import evaluate_torch
+    import train_torch
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.data import KittiOdometryCMRDataset
+    from i2pnet_tpu_torch.data.preprocess import cmr_seed_value, cmr_test_rt_path, load_test_rt
+    from i2pnet_tpu_torch.eval.analysis import aggregate_seeds, parse_prediction_file
+    from i2pnet_tpu_torch.models import I2PNet
+    from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
+
+    root, rt_dir = os.path.join(work, "cmr_data"), os.path.join(work, "cmr_test_rt")
+    t0 = time.perf_counter()
+    write_cmr_tree(root, rt_dir)
+    print(f"phase 24: wrote the KITTI odometry CMR tree ({sum(CMR_FRAMES.values())} frames, maps "
+          f"of {CMR_MAP_POINTS} points) and {len(CMR_SEEDS)} per-seed tables in "
+          f"{time.perf_counter() - t0:.1f} s")
+    defaults = train_torch.parse_args([])
+    check((defaults.dataset, defaults.network) == ("kd_cmr_snr", "i2pnet"),
+          f"phase 24: train_torch.py's defaults {defaults.dataset}, {defaults.network}")
+    log_dir = os.path.join(work, "cmr_run")
+    argv = ["--root_path", root, "--log_dir", log_dir, "--compute_dtype", "bfloat16",
+            "--batch_size", str(BATCH), "--max_epoch", "2"]
+    initial, real_build = {}, cli.build
+
+    def build(args):
+        model, cfg, proj = real_build(args)
+        initial.setdefault("state", {k: v.clone() for k, v in model.state_dict().items()})
+        return model, cfg, proj
+
+    cli.build = build
+    try:
+        with StandIns("phase 24"), FirstCalls({"step": [ctx.fps] + ctx.train_kernels, "eval": []},
+                                              ctx.read_counts) as first:
+            trainer = ctx.launches_of("cmr_train_cli",
+                                      run_launches(TRAIN_LAUNCHES, NO_LAUNCHES, CMR_STEPS, 0),
+                                      lambda: train_torch.main(argv))
+    finally:
+        cli.build = real_build
+    check_first_calls(first, TRAIN_LAUNCHES, None, "phase 24")
+    del first
+    losses = scalars(log_dir, "train/loss")
+    final = trainer.model.state_dict()
+    unmoved = [k for k, v in initial["state"].items() if torch.equal(v, final[k])]
+    check(isinstance(trainer.train_loader.dataset, KittiOdometryCMRDataset)
+          and trainer.valid_loader is None and trainer.state.step == CMR_STEPS
+          and losses and all(math.isfinite(v) for _, v in losses) and not unmoved
+          and trainer.ckpt.all_steps() == [0, 1],
+          f"phase 24: step {trainer.state.step}, losses {losses}, unmoved {unmoved[:5]}, "
+          f"checkpoints {trainer.ckpt.all_steps()}")
+    cfg = trainer.cfg
+    print(f"phase 24: train_torch.py with its defaults, 2 epochs of {CMR_STEPS // 2} steps on "
+          f"sequence 03 ({BATCH}x{IMG_H}x{IMG_W}, {cfg.lidar_in_points} points): losses "
+          f"{[round(v, 4) for _, v in losses]}, every parameter and statistic moved, no "
+          f"validation split, checkpoints {trainer.ckpt.all_steps()}")
+    del trainer, initial, final
+
+    # scripts/cmr_test_torch.sh's protocol: one evaluate_torch.py run a seed
+    eval_dir = os.path.join(work, "cmr_eval")
+    want = run_launches(NO_LAUNCHES, FREE_VAL_LAUNCHES, 0, CMR_TEST_BATCHES)
+    t0 = time.perf_counter()
+    with StandIns("phase 24 (10 seeds)"):
+        for seed in CMR_SEEDS:
+            seed_argv = ["--dataset", "kd_cmr_snr", "--network", "i2pnet", "--root_path", root,
+                         "--model_dir", log_dir, "--log_dir", eval_dir, "--seed", str(seed),
+                         "--tag", f"_seed{seed}", "--compute_dtype", "bfloat16", "--batch_size",
+                         str(BATCH), "--test_rt", cmr_test_rt_path(rt_dir, "00", 10.0, 2.0, seed)]
+
+            def run():
+                return ctx.launches_of(f"cmr_eval_seed{seed}", want,
+                                       lambda: evaluate_torch.main(seed_argv))
+
+            if seed == 0:  # the first run's kernel calls and out3 kept
+                with Captures(ctx.eval_kernels) as caps, CascadeRecorder() as rec:
+                    summary = run()
+            else:
+                summary = run()
+            check_eval_outputs(summary, eval_dir, CMR_FRAMES[0], f"phase 24 seed {seed}",
+                               tag=f"_seed{seed}")
+    seeds_s = time.perf_counter() - t0
+    with torch.no_grad():
+        errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                               caps[k["name"]].calls) for k in ctx.eval_kernels}
+    out3 = torch.cat(rec.outs)
+    qn = torch.linalg.norm(out3[:, :4], dim=-1)
+    check(tuple(out3.shape) == (CMR_FRAMES[0], 7) and bool(torch.isfinite(out3).all())
+          and bool(((qn - 1).abs() <= 1e-3).all()), f"phase 24: seed 0's out3 {out3}")
+    # each seed decalibrates by its pickle: the same tables where the
+    # protocol's tags repeat (the even seeds), others elsewhere
+    inits = {s: parse_prediction_file(os.path.join(eval_dir, f"prediction_seed{s}.txt"))["init"]
+             for s in CMR_SEEDS}
+    tags = {s: cmr_seed_value(s) for s in CMR_SEEDS}
+    check(all((tags[a] == tags[b]) == bool((inits[a] == inits[b]).all())
+              for a in CMR_SEEDS for b in CMR_SEEDS),
+          f"phase 24: the seeds' decalibrations do not follow their tables' tags {tags}")
+    agg = aggregate_seeds(os.path.join(eval_dir, "prediction_seed*.txt"))
+    check(agg.get("seeds") == len(CMR_SEEDS) and all(math.isfinite(v) for v in agg.values()),
+          f"phase 24: aggregate {agg}")
+    print(f"phase 24: the 10-seed protocol (evaluate_torch.py a seed, its pickle through "
+          f"load_test_rt; {len(set(tags.values()))} distinct tables) in {seeds_s:.1f} s: ten "
+          f"prediction files of {CMR_FRAMES[0]} pairs, seed 0's out3 finite with unit "
+          f"quaternions; aggregate_seeds {agg}")
+    rows = shape_rows(ctx, "cmr_eval_seed0", ctx.eval_kernels, caps,
+                      ctx.path_launches["cmr_eval_seed0"], errors)
+    del caps, rec
+
+    # the Evaluator's own throughput on seed 0's split, no capture on
+    model = I2PNet(cfg)
+    model.load_state_dict(restore_inference_variables(log_dir, model, best="latest"), strict=True)
+    with StandIns("phase 24 (timed)"):
+        ds = KittiOdometryCMRDataset(root, mode="test", seed=0, test_rt=load_test_rt(
+            cmr_test_rt_path(rt_dir, "00", 10.0, 2.0, 0)))
+        evaluator_throughput(ctx.launches_of, "cmr_evaluator_timed",
+                             {k: v * CMR_TEST_BATCHES * CMR_TIMED_REPEATS
+                              for k, v in FREE_VAL_LAUNCHES.items()},
+                             [model.eval()], cfg, False, Repeated(ds, CMR_TIMED_REPEATS),
+                             os.path.join(work, "cmr_timed"))
+    return rows
+
+
+def nus_large_phase(ctx, work: str):
+    """Phase 25: nuScenes large-range (nus_corr_nolidar) on
+    ``I2PNetProjConfig.nuscenes()`` in bf16 at B=8: the test split's first
+    batch through the eager forward and its CUDA-graph replay, the train
+    step on the training split's first batch, and a 2-stage Evaluator over
+    the 16 test pairs; every select call on the 32-row grid equal to its
+    plain version. Returns the new shapes' kernel numbers and the frames'
+    directory, which phase 26 reads too."""
+    import torch
+
+    import evaluate_torch
+    import train_torch
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.data import BatchLoader, prefetch_to_device
+    from i2pnet_tpu_torch.data.pipeline import to_model_batch
+    from i2pnet_tpu_torch.eval import Evaluator
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import pointops
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step_proj
+
+    root = os.path.join(work, "nus_large")
+    t0 = time.perf_counter()
+    frames = write_nus_tree(root, NUS_LARGE_POINTS)
+    print(f"phase 25: wrote the nuScenes tree ({NUS_ENTRIES} maps of {NUS_LARGE_POINTS[0]}-"
+          f"{NUS_LARGE_POINTS[1]} points, {NUS_ENTRIES} {NUS_FRAME} frames) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = dataclasses.replace(I2PNetProjConfig.nuscenes(), compute_dtype="bfloat16")
+    check(cfg.init_H == 32 and cfg.lidar_Hs == (16, 8, 4, 4), f"phase 25: grid {cfg.lidar_Hs}")
+    eargs = evaluate_torch.parse_args(["--dataset", "nus_corr_nolidar", "--root_path", root,
+                                       "--model_dir", "unused"])
+    targs = train_torch.parse_args(["--dataset", "nus_corr_nolidar", "--network",
+                                    "i2pnet_proj", "--root_path", root])
+    with StandIns("phase 25", frames=True):
+        t0 = time.perf_counter()
+        test = to_model_batch(next(prefetch_to_device([collate_first(cli.eval_split(eargs, cfg))],
+                                                      ctx.dev)))
+        load_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+        train_ds, valid = cli.build_datasets(targs, cfg)
+        tbatch = to_model_batch(next(prefetch_to_device([collate_first(train_ds)], ctx.dev)))
+    check(valid is None and tuple(test["lidar"].shape) == (BATCH, 150000, 3)
+          and tuple(test["rgb"].shape) == (BATCH, PROJ_H, PROJ_W, 3),
+          f"phase 25: batch {tuple(test['lidar'].shape)}, {tuple(test['rgb'].shape)}")
+    print(f"phase 25: a test sample loads in {load_ms:.1f} ms on the host (one thread): "
+          f"{BATCH} clouds zero-padded to 150000 points, {PROJ_H}x{PROJ_W} crops")
+
+    model = init_random_(I2PNetProj(cfg), torch.Generator().manual_seed(SEED)).eval()
+
+    def fwd():
+        return model(test["rgb"], test["lidar"], test["raw_xyz"], test["intrinsic"],
+                     lidar_feature=test["lidar_feats"])
+
+    kernels = [ctx.block, ctx.select]
+    with torch.no_grad(), Captures(kernels) as caps, Capture(pointops, "knn_point") as knn:
+        ctx.launches_of("nus_proj_eval", PROJ_LAUNCHES, fwd)
+        # the free model's first level (8192 points, 2048 queries, k=32) on
+        # clouds half zero padding, as the loaders pad them
+        cloud = test["lidar"][:, :8192].clone()
+        cloud[:, 4096:] = 0.0
+        pointops.knn_point(32, cloud, cloud[:, ::4].contiguous())
+    knn_ties(knn.calls, "phase 25 KNN (the proj forward's cost volumes; a zero-padded first level)")
+    del knn
+    forward_and_replay(fwd, "phase 25 nuScenes proj eval", ctx.card)
+    with torch.no_grad():
+        errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                               caps[k["name"]].calls) for k in kernels}
+    grids = sorted({tuple(a[0].shape[1:3]) for a, _ in caps["select"].calls})
+    check(max(h for h, _ in grids) == 32, f"phase 25: select grids {grids}")
+    print(f"phase 25: {len(caps['select'].calls)} select calls on the range grids {grids} equal "
+          f"to the plain version")
+    rows = shape_rows(ctx, "nus_proj_eval", kernels, caps, ctx.path_launches["nus_proj_eval"],
+                      errors)
+    del caps, model
+
+    # the train step: dropout, Adam, the train-encoder kernels
+    tmodel = init_random_(I2PNetProj(cfg), torch.Generator().manual_seed(SEED))
+    state = create_train_state(tmodel, steps_per_epoch=100)
+    step, gen = make_train_step_proj(tmodel, cfg), torch.Generator(ctx.dev).manual_seed(SEED)
+    params0 = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    buffers0 = {n: b.clone() for n, b in tmodel.named_buffers()}
+    with Captures(ctx.train_kernels) as caps:
+        metrics = ctx.launches_of("nus_proj_train", PROJ_TRAIN_LAUNCHES,
+                                  lambda: step(state, tbatch, gen))
+    check_step_moved(tmodel, params0, buffers0, metrics, "phase 25 nuScenes proj train step")
+    hold_train_calls(ctx, caps, "phase 25")
+    print(f"phase 25 nuScenes proj train step: loss {float(metrics['loss']):.6f}; every "
+          f"parameter and statistic moved")
+    del caps, params0, buffers0
+    timed_step(step, state, tbatch, gen, "phase 25 nuScenes proj train step", ctx.card)
+    del tmodel, state, step
+
+    # a 2-stage Evaluator over the test split
+    models = [init_random_(I2PNetProj(cfg), torch.Generator().manual_seed(SEED + i)).eval()
+              for i in range(EVAL_STAGES)]
+    log_dir = os.path.join(work, "nus_large_eval")
+    with StandIns("phase 25 (Evaluator)", frames=True):
+        with Captures(kernels) as caps, CascadeRecorder() as rec:
+            summary = ctx.launches_of(
+                "nus_proj_evaluator", NUS_EVALUATOR_LAUNCHES,
+                lambda: Evaluator(models, cfg, proj=True, log_dir=log_dir).validate(
+                    BatchLoader(cli.eval_split(eargs, cfg), BATCH, shuffle=False,
+                                drop_last=False)))
+        first = next(prefetch_to_device([collate_first(cli.eval_split(eargs, cfg))], ctx.dev))
+    check_eval_outputs(summary, log_dir, NUS_ENTRIES, "phase 25 Evaluator")
+    check_cascade(models, first, True, rec.outs[0], "phase 25")
+    with torch.no_grad():
+        for k in kernels:
+            eval_kernel_error(k["name"], getattr(k["module"], k["plain"]), caps[k["name"]].calls)
+    print(f"phase 25: Evaluator, a {EVAL_STAGES}-stage cascade of the nuScenes proj config in "
+          f"bf16 over {NUS_ENTRIES} test pairs: mean_fps {summary['mean_fps']:.2f} pairs/s (the "
+          f"checks' captures on, one timed batch)")
+    return rows, frames
+
+
+def nus_cmr_phase(ctx, work: str, frames: str) -> dict:
+    """Phase 26: nuScenes small-range (nus_cmr_snr) on the shipped free config
+    in bf16 at B=8 and the loader's 640x1280, 8192 points from maps of
+    50k-80k: the eager forward and its graph replay (cv1 at K = 20x40 =
+    800), the train step (the peak memory of the card), and
+    evaluate_torch.py with a --test_rt CSV in the reference's
+    id,tx,ty,tz,rx,ry,rz layout."""
+    import numpy as np
+    import torch
+
+    import evaluate_torch
+    import train_torch
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.data import prefetch_to_device
+    from i2pnet_tpu_torch.data.pipeline import to_model_batch
+    from i2pnet_tpu_torch.data.preprocess import generate_test_rt
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step
+
+    root = os.path.join(work, "nus_cmr")
+    t0 = time.perf_counter()
+    write_nus_tree(root, NUS_CMR_POINTS, frames_dir=frames)
+    rt = generate_test_rt(NUS_ENTRIES, seed=SEED + 26)
+    csv = os.path.join(work, "nus_test_rt.csv")
+    with open(csv, "w") as f:
+        f.write("id,tx,ty,tz,rx,ry,rz\n")
+        for i, row in enumerate(rt):
+            f.write(",".join([str(i)] + [repr(float(v)) for v in (*row[3:], *row[:3])]) + "\n")
+    print(f"phase 26: wrote {NUS_ENTRIES} maps of {NUS_CMR_POINTS[0]}-{NUS_CMR_POINTS[1]} points "
+          f"(phase 25's frames) and the test table's CSV in {time.perf_counter() - t0:.1f} s")
+    cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
+    eargs = evaluate_torch.parse_args(["--dataset", "nus_cmr_snr", "--network", "i2pnet",
+                                       "--root_path", root, "--test_rt", csv,
+                                       "--model_dir", "unused"])
+    targs = train_torch.parse_args(["--dataset", "nus_cmr_snr", "--root_path", root])
+    with StandIns("phase 26", frames=True):
+        test_ds = cli.eval_split(eargs, cfg)
+        check(np.allclose(test_ds.test_RT, rt, rtol=0, atol=1e-15),
+              "phase 26: the test table read from the CSV")
+        test = to_model_batch(next(prefetch_to_device([collate_first(test_ds)], ctx.dev)))
+        tbatch = to_model_batch(next(prefetch_to_device(
+            [collate_first(cli.build_datasets(targs, cfg)[0])], ctx.dev)))
+    h, w = test["rgb"].shape[1:3]
+    check((h, w) == (640, 1280) and tuple(test["lidar"].shape) == (BATCH, 8192, 3),
+          f"phase 26: batch {tuple(test['rgb'].shape)}, {tuple(test['lidar'].shape)}")
+
+    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
+
+    def fwd():
+        return model(test["rgb"], test["lidar"], test["intrinsic"],
+                     lidar_feature=test["lidar_feats"], raw_xyz=test["raw_xyz"])
+
+    with torch.no_grad(), Captures(ctx.eval_kernels) as caps:
+        ctx.launches_of("nus_free_eval", FREE_VAL_LAUNCHES, fwd)
+    forward_and_replay(fwd, "phase 26 nuScenes free eval (640x1280)", ctx.card)
+    with torch.no_grad():
+        errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                               caps[k["name"]].calls) for k in ctx.eval_kernels}
+    (cv1_args, _), = caps["cv1"].calls
+    check(cv1_args[3].shape[1] == 800, f"phase 26: cv1 at K={cv1_args[3].shape[1]}")
+    blocks = sorted({tuple(a[0].shape[1:3]) for a, _ in caps["encoder_block"].calls})
+    print(f"phase 26: cv1 at K={cv1_args[3].shape[1]} (a 20x40 feature grid), max abs err "
+          f"{errors['cv1']:.3e}; encoder blocks at {blocks}")
+    rows = shape_rows(ctx, "nus_free_eval", ctx.eval_kernels, caps,
+                      ctx.path_launches["nus_free_eval"], errors)
+    del caps, model
+
+    tmodel = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED))
+    state = create_train_state(tmodel, steps_per_epoch=100)
+    step, gen = make_train_step(tmodel, cfg), torch.Generator(ctx.dev).manual_seed(SEED)
+    params0 = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    buffers0 = {n: b.clone() for n, b in tmodel.named_buffers()}
+    train_kernels = [ctx.fps] + ctx.train_kernels
+    with Captures(train_kernels) as caps:
+        metrics = ctx.launches_of("nus_free_train", TRAIN_LAUNCHES,
+                                  lambda: step(state, tbatch, gen))
+    check_step_moved(tmodel, params0, buffers0, metrics, "phase 26 nuScenes free train step")
+    errors = hold_train_calls(ctx, caps, "phase 26")
+    print(f"phase 26 nuScenes free train step at {h}x{w}: loss {float(metrics['loss']):.6f}; "
+          f"every parameter and statistic moved")
+    new = shape_rows(ctx, "nus_free_train", train_kernels, caps,
+                     ctx.path_launches["nus_free_train"], errors)
+    for name, entry in new.items():
+        rows.setdefault(name, {}).update(entry)
+    del caps, params0, buffers0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timed_step(step, state, tbatch, gen, f"phase 26 nuScenes free train step ({h}x{w})", ctx.card)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 26 nuScenes free train step ({h}x{w}): torch.cuda.max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB over the timed steps, {(peak - base) / 2**30:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB held before them (model, Adam's state, the batch) on {ctx.card}")
+    del tmodel, state, step
+
+    # evaluate_torch.py with the CSV table on a saved single stage
+    stage_dirs = save_stages([init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED))],
+                             os.path.join(work, "nus_cmr_stage"))
+    eval_dir = os.path.join(work, "nus_cmr_eval")
+    with StandIns("phase 26 (evaluate_torch.py)", frames=True):
+        summary = ctx.launches_of(
+            "nus_cmr_evaluate_cli", run_launches(NO_LAUNCHES, FREE_VAL_LAUNCHES, 0,
+                                                 NUS_ENTRIES // BATCH),
+            lambda: evaluate_torch.main(["--dataset", "nus_cmr_snr", "--network", "i2pnet",
+                                         "--root_path", root, "--test_rt", csv, "--model_dir",
+                                         *stage_dirs, "--compute_dtype", "bfloat16",
+                                         "--batch_size", str(BATCH), "--log_dir", eval_dir]))
+    check_eval_outputs(summary, eval_dir, NUS_ENTRIES, "phase 26 evaluate_torch.py")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1849,10 +2493,9 @@ def main() -> int:
     cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
     model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
     inputs = make_inputs(cfg, dev)
-    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in eval_kernels}
     with torch.no_grad():
         reset_counts()
-        with captures["fps"], captures["encoder_block"], captures["cv1"]:
+        with Captures(eval_kernels) as captures:
             out = model(*inputs)
         torch.cuda.synchronize()
         counts = read_counts()
@@ -1925,11 +2568,8 @@ def main() -> int:
     pw_bn = tmodel.flow_predictor0.mlp_conv.PointwiseConv_0.BatchNorm_0
     pw_in = []
     hook = pw_bn.register_forward_pre_hook(lambda mod, a: pw_in.append(a[0].detach()))
-    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in all_kernels}
     reset_counts()
-    with (captures["fps"], captures["encoder_block"], captures["cv1"], captures["conv_fwd"],
-          captures["conv_dx"], captures["conv_dw"], captures["bn_pool_fwd"],
-          captures["bn_pool_bwd"]):
+    with Captures(eval_kernels + train_kernels) as captures:
         metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     train_launches = read_counts()
@@ -2016,10 +2656,9 @@ def main() -> int:
     pmodel = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED)).eval()
     pinputs = make_proj_inputs(dev)
     block = next(k for k in eval_kernels if k["name"] == "encoder_block")
-    captures = {k["name"]: Capture(k["module"], k["fn"]) for k in (block, select)}
     with torch.no_grad():
         reset_counts()
-        with captures["encoder_block"], captures["select"]:
+        with Captures([block, select]) as captures:
             out = pmodel(*pinputs)
         torch.cuda.synchronize()
         proj_launches = read_counts()
@@ -2091,9 +2730,7 @@ def main() -> int:
     ptmodel, pstate, pstep, pgen = proj_train_setup()
     params0 = {n: p.detach().clone() for n, p in ptmodel.named_parameters()}
     buffers0 = {n: b.clone() for n, b in ptmodel.named_buffers()}
-    captures = {k["name"]: Capture(ct, k["fn"]) for k in train_kernels}
-    with (captures["conv_fwd"], captures["conv_dx"], captures["conv_dw"], captures["bn_pool_fwd"],
-          captures["bn_pool_bwd"]):
+    with Captures(train_kernels) as captures:
         pmetrics = launches_of("proj_train", PROJ_TRAIN_LAUNCHES,
                                lambda: pstep(pstate, pbatch, pgen))
     proj_errors = {}
@@ -2175,8 +2812,7 @@ def main() -> int:
     # kernels against the plain versions, and the first two stages' blocks
     # under pallas and idx bit for bit
     os.environ["I2PNET_POOL_BWD"] = "pallas"
-    captures = {k["name"]: Capture(ct, k["fn"]) for k in pallas_kernels}
-    with captures["bn_pool_fwd_notap"], captures["bn_pool_bwd_recompute"]:
+    with Captures(pallas_kernels) as captures:
         launches_of("proj_train_pallas", PROJ_PALLAS_LAUNCHES, lambda: pstep(pstate, pbatch, pgen))
     with torch.no_grad():
         for k in pallas_kernels:
@@ -2275,8 +2911,7 @@ def main() -> int:
         argv = ["--root_path", os.path.join(work, "data"), "--model_dir", *stage_dirs,
                 "--compute_dtype", "bfloat16", "--batch_size", str(BATCH),
                 "--log_dir", os.path.join(work, "cli_eval")]
-        captures = {k["name"]: Capture(k["module"], k["fn"]) for k in (block, select)}
-        with captures["encoder_block"], captures["select"], CascadeRecorder() as rec:
+        with Captures([block, select]) as captures, CascadeRecorder() as rec:
             summary = launches_of("proj_evaluate_cli", CLI_LAUNCHES,
                                   lambda: evaluate_torch.main(argv))
         check_eval_outputs(summary, os.path.join(work, "cli_eval"), 2 * EVAL_FRAMES, "phase 16")
@@ -2317,8 +2952,7 @@ def main() -> int:
             m.load_state_dict(restore_inference_variables(d, m), strict=True)
             models.append(m)
         evaluator = Evaluator(models, cfg, proj=False, log_dir=os.path.join(work, "free_eval"))
-        captures = {k["name"]: Capture(k["module"], k["fn"]) for k in eval_kernels}
-        with captures["fps"], captures["encoder_block"], captures["cv1"], CascadeRecorder() as rec:
+        with Captures(eval_kernels) as captures, CascadeRecorder() as rec:
             summary = launches_of("free_evaluator", FREE_EVALUATOR_LAUNCHES,
                                   lambda: evaluator.validate(
                                       BatchLoader(ds, BATCH, shuffle=False, drop_last=False)))
@@ -2378,6 +3012,32 @@ def main() -> int:
     for row in rows:  # the efgh path's worst error beside the bench inputs'
         if row["name"] in efgh_errors:
             row["efgh_max_abs_err"] = efgh_errors[row["name"]]
+
+    # --- phases 24-26: the vehicle-localisation protocols, from trees on disk
+    ctx.path_launches = path_launches
+    work = tempfile.mkdtemp(prefix="chip_smoke_localisation_")
+    timed = {}
+    try:
+        t_loc = time.perf_counter()
+        t0 = time.perf_counter()
+        parts = [cmr_phase(ctx, work)]
+        print(f"phase 24: {time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        part, frames = nus_large_phase(ctx, work)
+        parts.append(part)
+        print(f"phase 25: {time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        parts.append(nus_cmr_phase(ctx, work, frames))
+        print(f"phase 26: {time.perf_counter() - t0:.1f} s on {card}")
+        print(f"phases 24-26: {time.perf_counter() - t_loc:.1f} s on {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for part in parts:
+        for name, entry in part.items():
+            timed.setdefault(name, {}).update(entry)
+    for row in rows:  # each kernel's calls on the new paths, timed as the row is
+        if row["name"] in timed:
+            row["new_paths"] = timed[row["name"]]
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

@@ -5,15 +5,22 @@ with the same flags and defaults and ``--device``.
 Loads the stages' checkpoints (a cascade when several --model_dir are
 given; each a log dir holding the port's checkpoints under ``torch/``, see
 ``i2pnet_tpu_torch/train/checkpoint.py``; a JAX run is converted with
-``tools/jax_ckpt_to_torch.py``), runs the KITTI large-range test protocol
-(``--dataset kd_corr_nolidar``) or the online-calibration one on the raw
-test drive (``--dataset kitti``, fixed decalibrations; ``--efgh`` for the
-efgh model), and writes log_test.txt, prediction.txt
-and a metrics npz under --log_dir in the JAX package's formats; --analyze
-prints recall stats from the npz. Runs on the CUDA card unless
-``--device cpu`` is given.
+``tools/jax_ckpt_to_torch.py``), runs ``--dataset``'s test protocol
+(``i2pnet_tpu_torch/cli.py`` ``eval_split``): KITTI large-range
+(``kd_corr_nolidar``, the default), KITTI odometry small-range
+(``kd_cmr_snr``: sequence 00 under fixed decalibrations, the generated
+table of --seed or a ``--test_rt`` CSV or per-seed pickle; the 10-seed
+protocol is ``scripts/cmr_test_torch.sh``), online calibration on the raw
+test drive (``kitti``, fixed decalibrations; ``--efgh`` for the efgh
+model), or nuScenes (``nus_cmr_snr`` with its own --test_rt,
+``nus_corr_nolidar``; ``test_dataset*.list`` under --root_path), and writes
+log_test.txt, prediction.txt and a metrics npz under --log_dir in the JAX
+package's formats; --analyze prints recall stats from the npz. Runs on the
+CUDA card unless ``--device cpu`` is given.
 
     python3 evaluate_torch.py --model_dir runA runB --compute_dtype bfloat16
+    python3 evaluate_torch.py --dataset kd_cmr_snr --network i2pnet --model_dir log/cmr \\
+        --test_rt test_RT_seq00_10.00_2.00_0.pkl --seed 0 --tag _seed0
 """
 
 from __future__ import annotations
@@ -33,8 +40,7 @@ def parse_args(argv=None):
     p.add_argument("--dataset", default="kd_corr_nolidar",
                    choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
                             "kd_corr_nolidar", "nus_corr_nolidar"],
-                   help="kd_corr_nolidar and kitti are ported; the others raise "
-                        f"NotImplementedError ({_ITEM5})")
+                   help="the protocol whose test split is evaluated")
     p.add_argument("--network", default="i2pnet_proj",
                    choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
     p.add_argument("--root_path", default="/dataset")
@@ -48,10 +54,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tag", default="")
     p.add_argument("--test_rt", default=None,
-                   help="CSV of fixed test decalibrations, read by kd_cmr_snr "
-                        f"and nus_cmr_snr, whose loaders are not ported ({_ITEM5}); "
-                        "kd_corr_nolidar takes the flag and ignores it, as "
-                        "evaluate.py does")
+                   help="fixed test decalibrations, a CSV (a header such as "
+                        "id,tx,ty,tz,rx,ry,rz, or none) or a per-seed pickle, read by "
+                        "kd_cmr_snr and nus_cmr_snr; the other datasets take the flag and "
+                        "ignore it, as evaluate.py does")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--debug_nans", action="store_true",
                    help="check every stage's out3/out4 with torch.isfinite "
@@ -78,15 +84,7 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.test_rt and args.dataset in _READS_TEST_RT:
-        raise NotImplementedError(
-            f"--test_rt is read by {' and '.join(_READS_TEST_RT)}, whose loaders are not "
-            f"ported ({_ITEM5})")
-    if args.dataset not in ("kd_corr_nolidar", "kitti"):
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is "
-            f"not ported ({_ITEM5})")
-    if args.test_rt:
+    if args.test_rt and args.dataset not in _READS_TEST_RT:
         warnings.warn(f"--test_rt {args.test_rt}: the {args.dataset} loader does not read it "
                       "(evaluate.py ignores it too)")
     if args.vis_rate > 0:
@@ -101,8 +99,8 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
 
-    from i2pnet_tpu_torch.cli import build, kitti_raw_dataset
-    from i2pnet_tpu_torch.data import BatchLoader, KittiLargeRangeDataset
+    from i2pnet_tpu_torch.cli import build, eval_split
+    from i2pnet_tpu_torch.data import BatchLoader
     from i2pnet_tpu_torch.eval import Evaluator, recall_analysis
     from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
     from i2pnet_tpu_torch.utils.seeding import set_seed
@@ -115,13 +113,9 @@ def main(argv=None):
                               strict=True)
         models.append(model)
 
-    if args.dataset == "kitti":
-        test_ds = kitti_raw_dataset(args, cfg, "test")
-    else:
-        ds_args = dict(mode="test", seed=args.seed)
-        if args.tiny:
-            ds_args.update(img_H=64, img_W=128, sample_point=2048)
-        test_ds = KittiLargeRangeDataset(args.root_path, **ds_args)
+    # evaluate.py re-seeds the test split's generator after drawing a
+    # template sample; the port draws none, so the split starts from the seed
+    test_ds = eval_split(args, cfg)
     loader = BatchLoader(test_ds, args.batch_size, shuffle=False, drop_last=False)
     evaluator = Evaluator(models, cfg, proj=proj, log_dir=args.log_dir, tag=args.tag,
                           device=args.device, debug_nans=args.debug_nans)

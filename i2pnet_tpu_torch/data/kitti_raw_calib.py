@@ -1,7 +1,8 @@
-"""KITTI raw online-calibration dataset, a port of
-``i2pnet_tpu/data/kitti_raw_calib.py`` ``KittiRawCalibDataset`` on the
-port's transforms: the same sample dict, the same RNG draws in the same
-order, so the two give equal samples for one seed.
+"""KITTI raw online-calibration datasets, a port of
+``i2pnet_tpu/data/kitti_raw_calib.py`` (``KittiRawCalibDataset`` and the
+RGGNet protocol's ``KittiRGGDataset``) on the port's transforms: the same
+sample dict, the same RNG draws in the same order, so the two give equal
+samples for one seed.
 
 Raw-drive images (``image_02``) and velodyne scans; a decalibration per
 item (+-d_rot deg as zyx euler angles, +-d_trans m; at the amplitude under
@@ -16,12 +17,14 @@ from __future__ import annotations
 
 import glob
 import os
+import pickle
 from typing import Optional
 
 import numpy as np
 from scipy.spatial.transform import Rotation
 
 from i2pnet_tpu_torch.data import transforms as T
+from i2pnet_tpu_torch.data.calib import RawCalib
 
 # velo -> cam2 with R0_rect folded in, per recording date
 CALIB_BY_DATE = {
@@ -166,3 +169,83 @@ class KittiRawCalibDataset:
         if self.emit_calib:
             out["calib"] = np.hstack([intrinsic, np.zeros((3, 1))]).astype(np.float32)
         return out
+
+
+def _reroot(path, base_path: Optional[str]) -> str:
+    """A recorded raw-KITTI path moved under ``base_path``: everything
+    before its date directory (``.../<date>/<date>_drive_xxxx_sync/...``)
+    replaced; unchanged without ``base_path`` or a date directory."""
+    if base_path is None:
+        return str(path)
+    parts = str(path).replace("\\", "/").split("/")
+    for j, seg in enumerate(parts):
+        if seg.count("_") == 2 and seg[:4].isdigit():
+            return os.path.join(base_path, *parts[j:])
+    return str(path)
+
+
+class KittiRGGDataset(KittiRawCalibDataset):
+    """The RGGNet protocol: raw-KITTI pairs with a FIXED decalibration per
+    sample, from a ``rgg_data_*.pkl`` that ``data/preprocess.py``
+    ``generate_rgg_splits`` writes (image and scan paths, (N, 3) euler
+    degrees applied zyx as the online-calibration sampler does, (N, 3)
+    meters). A pkl with a ``train_split`` serves mode 'train' (those
+    indices) and 'val' (the rest); mode 'test' takes every sample, and
+    'train' or 'val' on a test-only pkl raises. The calibration comes from
+    the date directory's calib files where they exist, else from
+    ``CALIB_BY_DATE``."""
+
+    def __init__(
+        self,
+        pkl_path: str,
+        mode: str = "test",
+        base_path: Optional[str] = None,
+        resize_w: int = 1216,
+        resize_h: int = 352,
+        sample_point: int = 8192,
+        seed: int = 0,
+        pc_filter: bool = True,
+        emit_calib: bool = False,
+    ):
+        self.resize_w, self.resize_h = resize_w, resize_h
+        self.sample_point = sample_point
+        self.pc_filter = pc_filter
+        self.fixed_decalib = False
+        self.emit_calib = emit_calib
+        self.rng = np.random.default_rng(seed)
+
+        with open(pkl_path, "rb") as f:
+            data = pickle.load(f)
+        n = len(data["img"])
+        if mode in ("train", "val"):
+            if "train_split" not in data:
+                raise ValueError(f"{pkl_path} has no train_split — it is a test-only RGG split; "
+                                 f"mode={mode!r} would train on the evaluation set")
+            train = np.asarray(data["train_split"], np.int64)
+            idx = train if mode == "train" else np.setdiff1d(np.arange(n), train)
+        else:
+            idx = np.arange(n)
+
+        self.img_path = [_reroot(p, base_path) for p in np.asarray(data["img"])[idx]]
+        self.lidar_path = [_reroot(p, base_path) for p in np.asarray(data["lidar"])[idx]]
+        self.rot_table = np.asarray(data["rot"], np.float64)[idx]
+        self.trans_table = np.asarray(data["trans"], np.float64)[idx]
+
+        # <base>/<date>/<date>_drive_xxxx_sync/image_02/data/<frame>.png
+        date_dir = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+            self.img_path[0]))))
+        if os.path.exists(os.path.join(date_dir, "calib_cam_to_cam.txt")):
+            rc = RawCalib(date_dir)
+            self.cam_intrinsic, self.velo_extrinsic = rc.intrinsic, rc.extrinsic
+        else:
+            params = CALIB_BY_DATE[os.path.basename(date_dir)]
+            self.cam_intrinsic = np.array(
+                [[params["fx"], 0, params["cx"]], [0, params["fy"], params["cy"]], [0, 0, 1]])
+            self.velo_extrinsic = np.hstack([np.asarray(params["rot"]),
+                                             np.asarray(params["trans"])])
+
+    def get_decalibration(self, index: Optional[int] = None) -> np.ndarray:
+        """(3, 4) decalibration: sample ``index``'s row of the tables."""
+        r = np.deg2rad(self.rot_table[index])
+        return np.hstack([euler_to_rotmat(r[0], r[1], r[2]),
+                          self.trans_table[index].reshape(3, 1)])

@@ -1,8 +1,8 @@
-"""Dataset parameters of the online-calibration protocol: the port's own
-copy of ``KITTI_ONLINE_CALIB`` and the raw-drive lists of
-``i2pnet_tpu/data/params.py`` (``tests/test_torch_kitti_raw.py`` holds the
-two equal). Paths default to the reference's layout; the CLIs replace
-``base_path`` by ``--root_path``."""
+"""Dataset parameters of the protocols: the port's own copy of
+``i2pnet_tpu/data/params.py`` (``KITTI_ONLINE_CALIB`` and the raw-drive
+lists, ``KITTI_ODOMETRY``, ``NUSCENES`` and ``REAL_DATA``;
+``tests/test_torch_kitti_raw.py`` holds the two equal). Paths default to
+the reference's layout; the CLIs replace them by ``--root_path``."""
 
 from __future__ import annotations
 
@@ -28,4 +28,30 @@ KITTI_ONLINE_CALIB = {
     "valid2": _split("2011_09_26", RAW_VALID_DRIVES_2011_09_26, 2, 0.2, True),
     "valid3": _split("2011_09_26", RAW_VALID_DRIVES_2011_09_26, 5, 0.5, True),
     "test": _split("2011_09_30", RAW_TEST_DRIVES_2011_09_30, 10, 1.0, True),
+}
+
+# the KITTI odometry small-range protocol (CMRNet's): +-10 deg, +-2 m
+KITTI_ODOMETRY = {
+    "train": dict(root_path="/dataset", mode="train", max_r=10.0, max_t=2.0),
+    "valid": dict(root_path="/dataset", mode="test", max_r=10.0, max_t=2.0),
+    "test": dict(root_path="/dataset", mode="val", max_r=10.0, max_t=2.0),
+}
+
+NUSCENES = {
+    "train": dict(root_path="/dataset/nuScenes", mode="train"),
+    "valid": dict(root_path="/dataset/nuScenes", mode="val"),
+    "test": dict(root_path="/dataset/nuScenes", mode="test"),
+}
+
+
+def _real(mode, d_rot, d_trans):
+    return dict(root_path="/dataset/real_localize", mode=mode, d_rot=d_rot, d_trans=d_trans,
+                fixed_decalib=False, resize_w=1216, resize_h=352)
+
+
+# the real-rig localisation protocol; its test split draws no decalibration
+REAL_DATA = {
+    "train": _real("train", 10, 1.0),
+    "valid3": _real("test", 10, 1.0),
+    "test": _real("val", -1, -1),
 }

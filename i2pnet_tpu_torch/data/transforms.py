@@ -123,18 +123,27 @@ def zero_pad_points(pc: np.ndarray, n_sample: int) -> np.ndarray:
     )
 
 
-def _linear_coeffs(n_in: int, n_out: int):
+def _linear_coeffs(n_in: int, n_out: int, clamp_weights: bool):
     """Per-axis source indices and 11-bit weights of OpenCV's INTER_LINEAR:
-    the half-pixel centre in f32 (scale in f64), the fraction zeroed at the
-    borders, each weight rounded on its own."""
-    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    the half-pixel centre in f32 (OpenCV's scale, 1 / (n_out / n_in), in
+    f64), each weight rounded on its own. The two axes treat the border
+    apart, as OpenCV does: along x (``clamp_weights``) a centre outside the
+    first or last pixel takes that pixel with weight 1; along y it keeps
+    its two weights and both source rows are clamped to the image, so a
+    border row of an upscaled image is the same row weighted twice, and
+    rounds as such."""
+    f = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
     i0 = np.floor(f).astype(np.int64)
     a = (f - np.floor(f)).astype(np.float32)
-    low = i0 < 0
-    a[low] = 0.0
-    i0[low] = 0
-    a[i0 >= n_in - 1] = 0.0
-    i1 = np.minimum(i0 + 1, n_in - 1)
+    if clamp_weights:
+        low = i0 < 0
+        a[low] = 0.0
+        i0[low] = 0
+        a[i0 >= n_in - 1] = 0.0
+        i1 = np.minimum(i0 + 1, n_in - 1)
+    else:
+        i1 = np.clip(i0 + 1, 0, n_in - 1)
+        i0 = np.clip(i0, 0, n_in - 1)
     c0 = np.rint((1.0 - a) * 2048).astype(np.int32)
     c1 = np.rint(a * 2048).astype(np.int32)
     return i0, i1, c0, c1
@@ -142,16 +151,16 @@ def _linear_coeffs(n_in: int, n_out: int):
 
 def resize_image(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """Bilinear resize of a uint8 (H, W) or (H, W, C) image, bit-exact to
-    ``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)`` on
-    the loaders' shapes: fixed-point weights (11 bits an axis), a
-    horizontal pass in integers, then the vertical pass with OpenCV's
-    shifts and rounding. int32 holds every intermediate (at most
-    255 * 2048 before the shift by 4, 2**26 after the vertical product)."""
+    ``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``,
+    down or up: fixed-point weights (11 bits an axis), a horizontal pass in
+    integers, then the vertical pass with OpenCV's shifts and rounding.
+    int32 holds every intermediate (at most 255 * 2048 before the shift by
+    4, 2**26 after the vertical product)."""
     if img.dtype != np.uint8:
         raise ValueError(f"resize_image: expected uint8, got {img.dtype}")
     h_in, w_in = img.shape[:2]
-    x0, x1, cx0, cx1 = _linear_coeffs(w_in, out_w)
-    y0, y1, cy0, cy1 = _linear_coeffs(h_in, out_h)
+    x0, x1, cx0, cx1 = _linear_coeffs(w_in, out_w, clamp_weights=True)
+    y0, y1, cy0, cy1 = _linear_coeffs(h_in, out_h, clamp_weights=False)
     trail = (1,) * (img.ndim - 2)
     h = img[:, x0].astype(np.int32)
     h *= cx0.reshape((-1,) + trail)

@@ -1,7 +1,8 @@
 """Point-cloud primitives (port of ``i2pnet_tpu/ops/pointops.py``).
 
 KNN is the exact dense form: expanded squared distances with a full-f32
-cross term, then ``torch.topk``. FPS dispatches on the tensor's device: the
+cross term, then a top-k that orders equal distances by index, as
+``lax.top_k`` does. FPS dispatches on the tensor's device: the
 CUDA kernel (``ops/fps_cuda.py``) for a CUDA tensor, the plain loop for a
 CPU one. Gathers are batched advanced indexing.
 """
@@ -36,12 +37,52 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return s2 + d2 - 2.0 * cross
 
 
+def _order_key(dist: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order f32 distances, then indices: the distance's
+    bits, mapped to an order-preserving int32 (a negative value, from the
+    expansion's cancellation, has its magnitude bits flipped), times 2**32,
+    plus the index. Every key is distinct. A distance is never -0.0 here:
+    it is a difference of equal non-negative sums at most."""
+    bits = dist.view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return key.mul_(1 << 32).add_(index)
+
+
+def knn_by_key(nsample: int, sqrdists: torch.Tensor) -> torch.Tensor:
+    """The nsample smallest of f32 sqrdists (..., N), by distance and then
+    index, in that order: a top-k of ``_order_key`` over the whole row."""
+    index = torch.arange(sqrdists.shape[-1], device=sqrdists.device)
+    key = _order_key(sqrdists, index)
+    return torch.topk(key, nsample, dim=-1, largest=False, sorted=True).indices
+
+
 def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """Indices (B, S, nsample) of the nearest points of xyz (B, N, C) to
-    each query of new_xyz (B, S, C), nearest first. The JAX package's exact
-    path; the order of equal distances may differ from ``lax.top_k``."""
+    each query of new_xyz (B, S, C), nearest first and equal distances
+    lowest index first: the JAX package's exact path, ``lax.top_k`` of the
+    negated distances, index for index.
+
+    The order of ties decides which neighbours a query takes wherever they
+    straddle the nsample-th place: duplicated points (a loader's zero
+    padding, sampling with repetition) and queries on a regular pixel grid
+    (a zero point projects to the principal point) make such ties.
+
+    On the card, ``torch.topk`` of the f32 distances picks the right set:
+    its gather takes the values past the k-th in index order and fills the
+    rest with the k-th value's ties, first seen first
+    (``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` hold it
+    against ``knn_by_key``); the picks are then ordered by distance and
+    index. On the CPU, whose top-k leaves ties in no set order,
+    ``knn_by_key`` runs on the whole row (an int64 top-k, too slow for the
+    card's first level). Distances wider than f32 (an f64 run) take a
+    stable sort."""
     sqrdists = square_distance(new_xyz, xyz)
-    return torch.topk(sqrdists, nsample, dim=-1, largest=False, sorted=True).indices
+    if sqrdists.dtype != torch.float32:
+        return torch.sort(sqrdists, dim=-1, stable=True).indices[..., :nsample]
+    if not sqrdists.is_cuda:
+        return knn_by_key(nsample, sqrdists)
+    vals, idx = torch.topk(sqrdists, nsample, dim=-1, largest=False, sorted=False)
+    return torch.sort(_order_key(vals, idx), dim=-1).values.bitwise_and_(0xFFFFFFFF)
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,41 @@ def test_fps_kernel_matches_plain(dev, B, N, npoint):
     assert torch.equal(got, fps_cuda.fps_plain(xyz, npoint))
 
 
+def tie_heavy_knn_inputs(case, rng):
+    """(xyz (B, N, 3), queries (B, S, 3)) whose distances tie across the
+    k-th place: a quantised cloud; a cloud half zero padding queried by
+    itself (the large-range loaders' tail); zero queries against the
+    symmetric pixel grid of a 20x40 feature map (a zero point projected)."""
+    if case == "quantised":
+        xyz = np.round(rng.normal(size=(8, 8192, 3)) * 2) / 4
+        return xyz, xyz[:, :2048]
+    if case == "zero_padded":
+        xyz = rng.normal(size=(2, 8192, 3)) * 20
+        xyz[:, 3000:] = 0.0
+        return xyz, xyz[:, ::4]
+    u, v = np.meshgrid(np.arange(40) - 19.5, np.arange(20) - 9.5)
+    grid = np.stack([u / 32, v / 32, np.ones_like(u)], -1).reshape(1, -1, 3)
+    queries = np.concatenate([np.zeros((2, 64, 3)), rng.normal(size=(2, 192, 3)) * 0.5], 1)
+    return np.repeat(grid, 2, 0), queries
+
+
+@pytest.mark.parametrize("case", ["quantised", "zero_padded", "pixel_grid"])
+def test_knn_point_on_the_card_takes_ties_by_index(dev, case):
+    """The card's KNN (f32 topk, its picks ordered by distance and index)
+    equals the int64-key top-k over the whole row (``knn_by_key``, the
+    CPU's path) on the same distances, where ties straddle the k-th place:
+    lax.top_k's order, index for index."""
+    from i2pnet_tpu_torch.ops import pointops
+
+    xyz, q = (torch.from_numpy(a.astype(np.float32)).to(dev)
+              for a in tie_heavy_knn_inputs(case, np.random.default_rng(7)))
+    d = pointops.square_distance(q, xyz)
+    srt = torch.sort(d, dim=-1).values
+    for k in (1, 8, 16, 32):
+        assert torch.equal(pointops.knn_point(k, xyz, q), pointops.knn_by_key(k, d)), k
+    assert any(bool((srt[..., k - 1] == srt[..., k]).any()) for k in (1, 8, 16, 32))
+
+
 # the four FPS levels of the free path (B, N, npoint), each at the
 # launcher's thread count (0) and at 256, 512 and 1024 threads a row
 FPS_LEVELS = [(8, 8192, 2048), (8, 2048, 1024), (8, 1024, 256), (8, 256, 64)]

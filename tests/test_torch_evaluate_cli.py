@@ -28,6 +28,7 @@ from i2pnet_tpu.config import I2PNetProjConfig as JaxProjConfig
 from i2pnet_tpu.models import I2PNetProj as JaxI2PNetProj
 from i2pnet_tpu.train import create_train_state
 from i2pnet_tpu.train.checkpoint import CheckpointManager as JaxManager
+from i2pnet_tpu_torch import cli
 from i2pnet_tpu_torch import metrics as M
 from i2pnet_tpu_torch.config import I2PNetProjConfig
 from i2pnet_tpu_torch.eval import analysis
@@ -108,14 +109,26 @@ def test_jax_checkpoint_evaluates_through_the_port(tmp_path, monkeypatch):
 
 
 def test_evaluate_torch_refuses_what_is_not_ported(tmp_path):
+    """--dp and --vis_rate raise, naming their ROADMAP items. The datasets
+    once refused here build evaluate.py's test split (``cli.eval_split``),
+    and --test_rt is read for kd_cmr_snr and nus_cmr_snr."""
     base = ["--model_dir", str(tmp_path), "--device", "cpu"]
-    for extra, match in ((["--dataset", "kd_cmr_snr"], "item 5"), (["--dp"], "item 9"),
-                         (["--vis_rate", "2"], "item 5"), (["--dataset", "nus_corr_nolidar"],
-                                                          "item 5"),
-                         (["--dataset", "kd_cmr_snr", "--test_rt", "rt.csv"],
-                          "nus_cmr_snr.*item 5")):
+    for extra, match in ((["--dp"], "item 9"), (["--vis_rate", "2"], "item 5")):
         with pytest.raises(NotImplementedError, match=match):
             evaluate_torch.main(base + extra)
+    rt = str(tmp_path / "rt.csv")
+    with open(rt, "w") as f:
+        f.write("id,tx,ty,tz,rx,ry,rz\n0,1.0,2.0,-1.5,0.1,-0.05,0.02\n")
+    for extra, cls, table in (
+            (["--dataset", "kd_cmr_snr"], "KittiOdometryCMRDataset", None),
+            (["--dataset", "nus_corr_nolidar"], "NuScenesLargeRangeDataset", None),
+            (["--dataset", "kd_cmr_snr", "--test_rt", rt], "KittiOdometryCMRDataset",
+             [[0.1, -0.05, 0.02, 1.0, 2.0, -1.5]])):
+        args = evaluate_torch.parse_args(base + extra + ["--root_path", str(tmp_path)])
+        ds = cli.eval_split(args, None)
+        assert type(ds).__name__ == cls and ds.mode == "test" and len(ds) == 0
+        if table is not None:
+            np.testing.assert_array_equal(ds.test_RT, table)
     # --efgh needs --dataset kitti and the free-point network, as evaluate.py
     for extra in (["--efgh"], ["--efgh", "--dataset", "kitti"]):
         with pytest.raises(SystemExit, match="--efgh needs"):

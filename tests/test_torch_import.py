@@ -2,7 +2,8 @@
 (``i2pnet_tpu``), not even one that imports no jax; nor do its scripts
 (``chip_smoke.py``, ``evaluate_torch.py``, ``train_torch.py`` and
 ``tools/synthetic_convergence_torch.py``), with every import each makes
-anywhere in the file.
+anywhere in the file. Importing all of it loads neither h5py nor PIL (the
+loaders import them when a sample is read) nor pandas.
 
 Run in a subprocess: this test process already holds jax (conftest.py)."""
 
@@ -48,6 +49,11 @@ NEW = [
     "i2pnet_tpu_torch.utils.avgmeter",
     "i2pnet_tpu_torch.utils.monitor",
     "i2pnet_tpu_torch.utils.timings",
+    # the vehicle-localisation protocols: the test tables, the KITTI
+    # odometry small-range and the nuScenes loaders
+    "i2pnet_tpu_torch.data.preprocess",
+    "i2pnet_tpu_torch.data.kitti_odometry_cmr",
+    "i2pnet_tpu_torch.data.nuscenes",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
            "tools/synthetic_convergence_torch.py"]
@@ -75,6 +81,9 @@ assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("
 jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "i2pnet_tpu")
 assert not jax_package, jax_package
 assert "torch" in sys.modules
+# the loaders import h5py and PIL only when a sample is read; nothing imports pandas
+readers = sorted(m for m in ("h5py", "PIL", "pandas") if m in sys.modules)
+assert not readers, readers
 """
 
 
@@ -86,5 +95,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (49 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 49
+    # the walk found the whole package (52 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 52

@@ -1,6 +1,8 @@
 """The online-calibration data path of the port on the CPU: its copy of
-the protocol's parameters, ``KittiRawCalibDataset`` against the JAX
-package's sample for sample, and ``train_torch.py --dataset kitti --efgh``
+the protocols' parameters, ``KittiRawCalibDataset`` against the JAX
+package's sample for sample, the RGGNet protocol's splits
+(``generate_rgg_splits``: the same pickles) and ``KittiRGGDataset`` (the
+same samples in every mode), and ``train_torch.py --dataset kitti --efgh``
 then ``evaluate_torch.py --dataset kitti --efgh`` on a synthetic raw tree
 (the CPU rehearsal of tests/test_cli_smoke.py's efgh run).
 
@@ -14,6 +16,7 @@ see identical arrays.
 
 import json
 import os
+import pickle
 import sys
 import types
 
@@ -25,7 +28,11 @@ import evaluate_torch
 import train_torch
 from i2pnet_tpu.data import params as jparams
 from i2pnet_tpu.data.kitti_raw_calib import KittiRawCalibDataset as JaxKittiRawCalibDataset
-from i2pnet_tpu_torch.data import KittiRawCalibDataset, params
+from i2pnet_tpu.data.kitti_raw_calib import KittiRGGDataset as JaxKittiRGGDataset
+from i2pnet_tpu.data.preprocess import RGG_SPLITS as JAX_RGG_SPLITS
+from i2pnet_tpu.data.preprocess import generate_rgg_splits as jax_generate_rgg_splits
+from i2pnet_tpu_torch.data import KittiRawCalibDataset, KittiRGGDataset, params
+from i2pnet_tpu_torch.data.preprocess import RGG_SPLITS, generate_rgg_splits
 from i2pnet_tpu_torch.data import transforms as T
 from i2pnet_tpu_torch.eval import analysis
 
@@ -69,6 +76,9 @@ def raw_root(tmp_path_factory):
 
 def test_params_match_jax():
     assert params.KITTI_ONLINE_CALIB == jparams.KITTI_ONLINE_CALIB
+    for name in ("KITTI_ODOMETRY", "NUSCENES", "REAL_DATA"):
+        assert getattr(params, name) == getattr(jparams, name), name
+    assert RGG_SPLITS == JAX_RGG_SPLITS
     for name in ("RAW_TRAIN_DRIVES_2011_09_26", "RAW_VALID_DRIVES_2011_09_26",
                  "RAW_TEST_DRIVES_2011_09_30"):
         assert getattr(params, name) == getattr(jparams, name)
@@ -137,3 +147,75 @@ def test_efgh_needs_the_kitti_dataset(tmp_path):
         with pytest.raises(SystemExit, match="--efgh needs"):
             train_torch.main(["--efgh", "--device", "cpu", "--log_dir", str(tmp_path)]
                              + (["--dataset", "kitti"] if "--network" in extra else []) + extra)
+
+
+@pytest.fixture(scope="module")
+def rgg_root(raw_root, tmp_path_factory):
+    """The RGG protocol's inputs: raw_root (drive 1 of 2011_09_26, one of
+    T2a's drives) and a 2011_10_03 drive 27 with the date's own calib files
+    (train_val_ex, the split with a train_split)."""
+    root = tmp_path_factory.mktemp("rgg_raw")
+    date_dir = root / "2011_10_03"
+    drive_dir = date_dir / "2011_10_03_drive_0027_sync"
+    (drive_dir / "image_02" / "data").mkdir(parents=True)
+    (drive_dir / "velodyne_points" / "data").mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    for i in range(FRAMES):
+        img = rng.integers(0, 255, size=(376, 1241, 3), dtype=np.uint8)
+        Image.fromarray(img).save(drive_dir / "image_02" / "data" / f"{i:010d}.png")
+        rng.uniform(2, 50, size=(5000, 4)).astype(np.float32).tofile(
+            drive_dir / "velodyne_points" / "data" / f"{i:010d}.bin")
+    (date_dir / "calib_cam_to_cam.txt").write_text(
+        "R_rect_00: 1 0 0 0 1 0 0 0 1\n"
+        "P_rect_02: 700.0 0.0 600.0 40.0 0.0 700.0 180.0 1.0 0.0 0.0 1.0 0.005\n")
+    (date_dir / "calib_velo_to_cam.txt").write_text("R: 0 -1 0 0 0 -1 1 0 0\nT: 0.05 -0.07 -0.27\n")
+    out = {}
+    for key, base in (("T2a", raw_root), ("train_val_ex", str(root))):
+        paths = []
+        for gen, sub in ((generate_rgg_splits, "port"), (jax_generate_rgg_splits, "jax")):
+            (written,) = gen(base, str(root / sub), seed=3, splits=[key])
+            paths.append(written)
+        out[key] = paths
+    return out
+
+
+def test_generate_rgg_splits_matches_jax(rgg_root):
+    """The same pickle from both: paths, tables and training indices."""
+    for key, (ours, ref) in rgg_root.items():
+        with open(ours, "rb") as f, open(ref, "rb") as g:
+            a, b = pickle.load(f), pickle.load(g)
+        assert set(a) == set(b) and ("train_split" in a) == (key == "train_val_ex")
+        for name in b:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=f"{key} {name}")
+        assert len(a["img"]) == RGG_SPLITS[key]["num"]
+
+
+@pytest.mark.parametrize("key,mode", [("T2a", "test"), ("train_val_ex", "train"),
+                                      ("train_val_ex", "val"), ("train_val_ex", "test")])
+def test_rgg_dataset_matches_jax(rgg_root, cv2_stand_in, key, mode):
+    """Every key of the first samples equal (each sample's fixed
+    decalibration, the points' draws from the seed), the split's size,
+    the calibration (the date's calib files for 2011_10_03, the built-in
+    table for 2011_09_26); a test-only split refuses 'train' and 'val'."""
+    path = rgg_root[key][0]
+    ours = KittiRGGDataset(path, mode=mode, sample_point=1024, seed=2, resize_w=128,
+                           resize_h=64, emit_calib=True)
+    ref = JaxKittiRGGDataset(path, mode=mode, sample_point=1024, seed=2, resize_w=128,
+                             resize_h=64, emit_calib=True)
+    want = {"test": 2000, "train": 1800, "val": 200}[mode]
+    assert len(ours) == len(ref) == want
+    np.testing.assert_array_equal(ours.cam_intrinsic, ref.cam_intrinsic)
+    np.testing.assert_array_equal(ours.velo_extrinsic, ref.velo_extrinsic)
+    for i in (0, 1, want - 1, 0):
+        a, b = ours[i], ref[i]
+        assert set(a) == set(b)
+        for name, value in b.items():
+            if isinstance(value, np.ndarray):
+                np.testing.assert_array_equal(a[name], value, err_msg=name)
+            else:
+                assert a[name] == value, name
+    if key == "T2a":
+        for cls in (KittiRGGDataset, JaxKittiRGGDataset):
+            for bad in ("train", "val"):
+                with pytest.raises(ValueError, match="test-only"):
+                    cls(path, mode=bad)

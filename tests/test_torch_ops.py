@@ -69,6 +69,42 @@ def test_square_distance_and_knn_match_jax():
     _close(P.safe_norm(t(src), keepdim=True), JP.safe_norm(src, keepdims=True))
 
 
+@pytest.mark.parametrize("case", ["quantised", "zero_padded", "pixel_grid"])
+def test_knn_orders_ties_as_jax(case):
+    """Equal distances straddling the k-th place: the port takes the
+    lowest indices first, as ``lax.top_k`` does, index for index. Quarter-
+    quantised clouds; a cloud half zero padding queried by itself (the
+    large-range loader's tail); queries at the principal point of a
+    symmetric pixel grid (a zero point projected, the proj cost volume's
+    image side); and distances below zero from the expansion's
+    cancellation, which the key must keep in order."""
+    rng = np.random.default_rng(4)
+    if case == "quantised":
+        dst = (np.round(rng.normal(size=(2, 96, 3)) * 2) / 4).astype(np.float32)
+        src = (np.round(rng.normal(size=(2, 40, 3)) * 2) / 4).astype(np.float32)
+    elif case == "zero_padded":
+        dst = (rng.normal(size=(2, 64, 3)) * 20).astype(np.float32)
+        dst[:, 24:] = 0.0
+        src = dst
+    else:
+        u, v = np.meshgrid(np.arange(16) - 7.5, np.arange(5) - 2.0)
+        grid = np.stack([u / 8, v / 8, np.ones_like(u)], -1).reshape(1, -1, 3)
+        dst = np.repeat(grid, 2, 0).astype(np.float32)
+        src = np.concatenate([np.zeros((2, 6, 3)), (rng.normal(size=(2, 10, 3)) * 0.5)], 1)
+        src = src.astype(np.float32)
+    d = np.asarray(JP.square_distance(src, dst))
+    for k in (1, 8, 17):
+        got = P.knn_point(k, t(dst), t(src)).numpy()
+        ref = np.asarray(JP.knn_point(k, jnp.asarray(dst), jnp.asarray(src), exact=True))
+        np.testing.assert_array_equal(got, ref)
+    # each case holds ties across one of the k-th places (else it would
+    # test nothing); the padded cloud's self-distances go below zero
+    srt = np.sort(d, -1)
+    assert any((srt[..., k - 1] == srt[..., k]).any() for k in (1, 8, 17))
+    if case == "zero_padded":
+        assert (d < 0).any()
+
+
 def test_index_points_and_grouping_match_jax():
     rng = np.random.default_rng(2)
     pts = rng.normal(size=(2, 30, 5)).astype(np.float32)

@@ -5,8 +5,8 @@
   ``evaluate_torch.py --device cpu`` reads the run back: the CPU rehearsal
   of the card's phase 18.
 - ``train_torch.py`` takes ``train.py``'s flags with its defaults, plus
-  ``--device`` (the card); refuses what is not ported and ``--efgh`` off
-  the kitti dataset; raises without a
+  ``--device`` (the card); builds every dataset as ``train.py`` does;
+  refuses ``--efgh`` off the kitti dataset; raises without a
   card unless ``--device cpu``; ``--debug_nans`` stops on a non-finite
   step.
 - ``cli.build`` draws fresh weights with the JAX package's initial
@@ -38,7 +38,7 @@ from i2pnet_tpu.utils.monitor import UniWriter as JaxUniWriter
 from i2pnet_tpu.utils.timings import Timings as JaxTimings
 from i2pnet_tpu_torch import cli
 from i2pnet_tpu_torch.convert import flax_to_state_dict
-from i2pnet_tpu_torch.data import KittiLargeRangeDataset
+from i2pnet_tpu_torch.data import KittiLargeRangeDataset, NuScenesLargeRangeDataset
 from i2pnet_tpu_torch.train.trainer import Trainer
 from i2pnet_tpu_torch.utils.avgmeter import AverageMeter
 from i2pnet_tpu_torch.utils.monitor import UniWriter
@@ -99,16 +99,28 @@ def test_train_torch_flags_match_train_py():
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--dataset", "kd_cmr_snr"], NotImplementedError, "item 5"),
-    (["--dataset", "nus_cmr_snr"], NotImplementedError, "item 5"),
+    (["--dataset", "kd_cmr_snr"], None, "KittiOdometryCMRDataset"),
+    (["--dataset", "nus_cmr_snr"], None, "NuScenesCMRDataset"),
     (["--efgh"], SystemExit, "--efgh needs"),
-    (["--dataset", "nus_corr_nolidar"], NotImplementedError, "item 5")])
+    (["--dataset", "nus_corr_nolidar"], None, "NuScenesLargeRangeDataset")])
 def test_train_torch_refuses_what_is_not_ported(extra, error, match, tmp_path):
-    """The loaders not ported yet raise; --efgh off the kitti dataset exits,
-    as train.py does."""
+    """--efgh off the kitti dataset exits, as train.py does. The datasets
+    once refused here build as train.py builds them: the same class and
+    training split, with the same image size and point budget, and no
+    validation split."""
     base = ["--dataset", "kd_corr_nolidar", "--device", "cpu", "--log_dir", str(tmp_path)]
-    with pytest.raises(error, match=match):
-        train_torch.main(base + extra)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_torch.main(base + extra)
+        return
+    args = train_torch.parse_args(base + extra + ["--root_path", str(tmp_path)])
+    ours, ref = cli.build_datasets(args, None), train.build(argparse_namespace(args))[3:]
+    assert type(ours[0]).__name__ == type(ref[0]).__name__ == match
+    assert ours[1] is None and ref[1] is None
+    assert (ours[0].mode, ours[0].img_H, ours[0].img_W, ours[0].sample_point) == \
+        (ref[0].mode, ref[0].img_H, ref[0].img_W, ref[0].sample_point) == \
+        ("train", *((384, 1280, 8192) if match == "KittiOdometryCMRDataset" else
+                    (640, 1280, 8192) if match == "NuScenesCMRDataset" else (160, 512, 150000)))
 
 
 def test_train_torch_class_target_needs_mask_heads(tree, tmp_path):
@@ -154,8 +166,11 @@ def test_build_datasets_matches_train_py(tree):
         for key, value in y.items():
             np.testing.assert_array_equal(np.asarray(x[key]), np.asarray(value), err_msg=key)
     assert isinstance(ours[0], KittiLargeRangeDataset)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.build_datasets(train_torch.parse_args(["--dataset", "nus_corr_nolidar"]), None)
+    # a root without nuScenes split lists gives an empty training split, as
+    # train.py's glob does
+    nus, valid = cli.build_datasets(
+        train_torch.parse_args(["--dataset", "nus_corr_nolidar", "--root_path", tree]), None)
+    assert isinstance(nus, NuScenesLargeRangeDataset) and len(nus) == 0 and valid is None
 
 
 def argparse_namespace(args):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's FPS, conv_dw, encoder-block, cv1, train-conv, pool
 (idx backward and forward, recompute backward, route) and window-select
-kernels of one source tree, per call shape.
+kernels of one source tree, per call shape, and its KNN.
 
     python3 tools/torch_kernel_times.py [--tree DIR] [--label NAME] [--only PART,...]
 
@@ -53,6 +53,10 @@ select: the window select at the 5 calls of one proj eval forward
 bound (this run's data) and whether m equals the plain version; then each
 level's shape on a clustered grid, where every slot is valid and K is below
 the count (the kernel's other branch).
+knn: ``knn_point`` at the calls of one free eval forward (``chip_smoke.py``'s
+model and inputs, B=8, 8192 points; the calls captured, the set
+abstractions' and the cost volumes'), each alone and all in one graph,
+and the whole forward in one graph: the KNN's share of the forward.
 sweep: kernel (a) at each distinct call shape of the free step on other
 launch plans (``conv3x3_launch_plan``; trees that have it), the plan's
 channel tile and slab width varied, and the default plan's rows cut for
@@ -414,6 +418,34 @@ def time_select(torch, dev):
     return rows, fns
 
 
+def time_knn(torch, dev):
+    """The KNN calls of one free eval forward, each alone and all in one
+    graph, and the forward in one graph."""
+    import dataclasses
+
+    # this checkout's chip_smoke.py (the package is already the tree's)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import Capture, make_inputs
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+    from i2pnet_tpu_torch.nn import costvolume
+    from i2pnet_tpu_torch.ops import pointops
+
+    cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
+    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(0)).eval()
+    inputs = make_inputs(cfg, dev)
+    with torch.no_grad():
+        with Capture(pointops, "knn_point") as sa, Capture(costvolume, "knn_point") as cv:
+            model(*inputs)
+        calls = [a for a, _ in sa.calls + cv.calls]
+        rows = [{"k": k, "xyz": list(xyz.shape), "queries": list(q.shape),
+                 "ms": replay_ms(lambda k=k, xyz=xyz, q=q: pointops.knn_point(k, xyz, q))}
+                for k, xyz, q in calls]
+        knn_ms = replay_ms(lambda: [pointops.knn_point(*a) for a in calls])
+        forward_ms = replay_ms(lambda: model(*inputs))
+    return rows, knn_ms, forward_ms
+
+
 def sweep_conv(torch, ct, dev):
     """Kernel (a) on other launch plans at each distinct call shape of the
     free step: each channel tile that divides cout and each slab width
@@ -498,7 +530,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--only", default="fps,dw,block,cv1,conv,pool,poolfwd,select",
                     help="comma-separated parts to time (fps, dw, block, cv1, conv, pool, "
-                         "poolfwd, recompute, route, select, sweep)")
+                         "poolfwd, recompute, route, select, knn, sweep)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -595,6 +627,9 @@ def main() -> int:
             total[f"select_forward_{col}"] = sum(r[col] for r in fwd)
         total["select_forward_one_graph_ms"] = replay_ms(lambda: [f() for f in fns])
         total["select_exact"] = all(r["exact"] for r in rows)
+    if "knn" in parts:
+        result["knn"], total["knn_forward_one_graph_ms"], total["free_forward_one_graph_ms"] = \
+            time_knn(torch, dev)
     if "sweep" in parts and hasattr(conv_train_cuda, "_conv_plan"):
         result["conv_sweep"] = sweep_conv(torch, conv_train_cuda, dev)
     print(json.dumps(result))

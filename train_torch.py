@@ -3,10 +3,14 @@
 the same flags and defaults and ``--device``.
 
 Builds the model (``i2pnet_tpu_torch/cli.py`` ``build``) and the datasets
-(``build_datasets``): the KITTI large-range training and validation splits
-(``--dataset kd_corr_nolidar``) or the raw online-calibration training
-drives (``--dataset kitti``, no validation; ``--efgh`` threads each
-sample's calibration matrix through the model), then runs the port's
+(``build_datasets``) of every ``train.py`` protocol: the KITTI odometry
+small-range training sequences (``--dataset kd_cmr_snr``, the default;
+h5 local maps), the KITTI large-range training and validation splits
+(``kd_corr_nolidar``), the raw online-calibration training drives
+(``kitti``; ``--efgh`` threads each sample's calibration matrix through the
+model), and nuScenes small- and large-range (``nus_cmr_snr``,
+``nus_corr_nolidar``: ``train_dataset*.list`` under --root_path; h5 maps,
+JPEG frames). Only kd_corr_nolidar has a validation split. Then runs the port's
 ``Trainer`` (``--train_target class`` trains the mask heads alone): per-epoch
 checkpoints with the optimizer state under ``<log_dir>/torch/``, validation
 and named best snapshots, config.json, metrics.jsonl and the text logs.
@@ -14,6 +18,7 @@ and named best snapshots, config.json, metrics.jsonl and the text logs.
 ``tools/jax_ckpt_to_torch.py`` converted from a JAX run. Runs on the CUDA
 card unless ``--device cpu`` is given.
 
+    python3 train_torch.py --root_path /dataset --log_dir log/cmr
     python3 train_torch.py --dataset kd_corr_nolidar --network i2pnet_proj \\
         --compute_dtype bfloat16 --num_workers 4 --log_dir log/proj
     python3 train_torch.py --dataset kitti --efgh --compute_dtype bfloat16 \\
@@ -24,17 +29,15 @@ from __future__ import annotations
 
 import argparse
 
-_ITEM5 = "ROADMAP queue 1, item 5"
-_PORTED_DATASETS = ("kd_corr_nolidar", "kitti")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", default="kd_cmr_snr",
                    choices=["kitti", "kd_cmr_snr", "nus_cmr_snr",
                             "kd_corr_nolidar", "nus_corr_nolidar"],
-                   help="kd_corr_nolidar and kitti are ported; the others raise "
-                        f"NotImplementedError ({_ITEM5})")
+                   help="the protocol's training split (its loader reads h5 maps for "
+                        "kd_cmr_snr and nuScenes, PNGs through cv2 for kitti, JPEGs through "
+                        "PIL for nuScenes)")
     p.add_argument("--network", default="i2pnet",
                    choices=["i2pnet", "i2pnet_proj", "i2pnet_proj_iter"])
     p.add_argument("--root_path", default="/dataset")
@@ -71,17 +74,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.dataset not in _PORTED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: its loader needs h5py, cv2 or PIL and is not ported "
-            f"({_ITEM5})")
-
-
 def main(argv=None):
     """Train; returns the ``Trainer``."""
     args = parse_args(argv)
-    _refuse_unported(args)
 
     from i2pnet_tpu_torch import cli
     from i2pnet_tpu_torch.train.trainer import Trainer

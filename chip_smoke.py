@@ -15,7 +15,9 @@ training entry point, ``train_torch.py`` and the ``Trainer``, and a short
 convergence run; then the online-calibration model and the projection-mask
 and option branches; then the vehicle-localisation protocols (KITTI
 odometry small-range, nuScenes small- and large-range) through their
-loaders and entry points. Phases, each raising on failure:
+loaders and entry points; then what a user runs around the model: the
+reference-checkpoint bridge, the visual outputs and the offline dataset
+builders. Phases, each raising on failure:
 
 1. build every CUDA kernel library from ``i2pnet_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print the card's name and power limit;
@@ -185,12 +187,44 @@ loaders and entry points. Phases, each raising on failure:
    the train step (every call against its plain version at 640x1280;
    timed, with ``torch.cuda.max_memory_allocated``), and
    ``evaluate_torch.main`` with a ``--test_rt`` CSV in the reference's
-   ``id,tx,ty,tz,rx,ry,rz`` layout.
+   ``id,tx,ty,tz,rx,ry,rz`` layout;
+27. the reference-checkpoint bridge and ``--vis_rate``: the seeded models
+   of phases 4 and 10 written under the reference RegNet_v2's names in its
+   file layout (``{"model_state_dict": {"module." + name: tensor}}``, by
+   the inverse of the bridge, ``reference_names``), converted by
+   ``tools/reference_ckpt_to_torch.py`` (bit-identical to the seeded
+   weights), then ``evaluate_torch.main --vis_rate 1`` in bf16 at B=8 on
+   phase 24's KITTI odometry tree (free, 2 batches) and on a large-range
+   tree (proj, 3 batches) with a recording writer: the launches, every
+   kernel call against its plain version, out3 of the first batch equal to
+   the seeded model's, the four tags every batch, the init, gt and pred
+   panels equal to ``render_projection`` re-run in numpy; the whole pass's
+   pairs/s with and without the overlays;
+28. ``tools/render_demo_torch.py`` on the bridged models at B=1 (free on
+   the CMR tree with ``--heat``, proj on the large-range tree): a first
+   frame with every kernel call against its plain version and timed (FPS
+   4, block 15, cv1 1; select 5, block 15), then 8 frames, every PNG
+   decoded with zlib equal to its panel, ms a frame split into forward,
+   render and PNG write; then ``tools/render_real_demo_torch.py`` on a
+   real-rig tree (velodyne ``.bin`` scans, PNG frames that
+   ``realloc.read_image`` decodes with cv2 or PIL) with phase 27's free
+   prediction file;
+29. the offline builders on the card's host from raw files numpy writes:
+   a KITTI odometry sequence (velodyne ``.bin``, ``poses.txt``,
+   ``calib.txt``) through ``bin_to_npy_with_normals``, ``poses_to_npz``,
+   ``process_sequence_accumulation`` and ``build_local_maps``, read by
+   ``KittiOdometryCMRDataset``; a nuScenes v1.0 JSON tree through
+   ``NuScenesLite`` and ``generate_split``, read by ``NuScenesCMRDataset``;
+   one free forward on the card from each, every kernel call against its
+   plain version; the builders' seconds.
 
-The script assumes no h5py or PIL: phases 24-26 stand in for the
-loaders' map read (``read_local_map``) and nuScenes' frame decode
-(``read_image``) alone, on files numpy wrote under the loaders' names, and
-time each kernel's calls on the new paths (``new_paths`` in the JSON line).
+The script assumes no h5py or PIL: phases 24-29 stand in for the
+loaders' map read (``read_local_map``), nuScenes' frame decode
+(``read_image``; the real rig's too where neither cv2 nor PIL is
+installed) and the builders' h5 writes (``write_local_map``) alone, on
+files numpy wrote under the loaders' names, and time each kernel's calls
+on the new paths (``new_paths`` in the JSON line; the B=1 calls of phase
+28 under ``demo_*_first_frame``).
 
 Phases 4 and 10 also time each encoder-block call beside ``F.conv2d`` on
 its conv, and phase 4 gives cv1's TFLOP/s.
@@ -205,6 +239,7 @@ the CPU: without a CUDA device it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1969,6 +2004,12 @@ def shape_rows(ctx, label: str, kernels, captures, launches, errors) -> dict:
     return {name: {label: {key: r[key] for key in KERNEL_KEYS}} for name, r in rows.items()}
 
 
+def merge_rows(rows: dict, part: dict) -> None:
+    """Add shape_rows' {name: {label: numbers}} to ``rows``, path by path."""
+    for name, entry in part.items():
+        rows.setdefault(name, {}).update(entry)
+
+
 class Captures(dict):
     """A Capture of each kernel, by name, all active together."""
 
@@ -2377,10 +2418,8 @@ def nus_cmr_phase(ctx, work: str, frames: str) -> dict:
     errors = hold_train_calls(ctx, caps, "phase 26")
     print(f"phase 26 nuScenes free train step at {h}x{w}: loss {float(metrics['loss']):.6f}; "
           f"every parameter and statistic moved")
-    new = shape_rows(ctx, "nus_free_train", train_kernels, caps,
-                     ctx.path_launches["nus_free_train"], errors)
-    for name, entry in new.items():
-        rows.setdefault(name, {}).update(entry)
+    merge_rows(rows, shape_rows(ctx, "nus_free_train", train_kernels, caps,
+                                ctx.path_launches["nus_free_train"], errors))
     del caps, params0, buffers0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2406,6 +2445,650 @@ def nus_cmr_phase(ctx, work: str, frames: str) -> dict:
                                          "--batch_size", str(BATCH), "--log_dir", eval_dir]))
     check_eval_outputs(summary, eval_dir, NUS_ENTRIES, "phase 26 evaluate_torch.py")
     return rows
+
+
+# phases 27-29: what a user runs around the model. Phase 27 writes the
+# seeded models of phases 4 and 10 under the reference's names and layout
+# (the inverse of the bridge, kept here), converts them with
+# tools/reference_ckpt_to_torch.py and evaluates them with --vis_rate 1 on
+# phase 24's KITTI odometry tree (free) and a large-range tree (proj);
+# phase 28 renders the demo frames at B=1 (tools/render_demo_torch.py) and
+# the real-rig frames (tools/render_real_demo_torch.py); phase 29 builds a
+# KITTI odometry sequence and a nuScenes split from raw files that numpy
+# writes, with only the h5 writes stood in, and runs a forward on each.
+VIS_TAGS = ("init_projected_img", "pj_projected_img", "gt_projected_img", "comparison_img")
+LR_FRAMES = {7: 12, 8: 12}  # the proj tree of phases 27-28: three batches
+DEMO_FRAMES = 8
+REAL_FRAMES, REAL_POINTS, REAL_FRAME = 4, 120000, (1072, 1300, 3)
+RAW_FRAMES, RAW_POINTS = 10, 16000
+NUS_KEYS, NUS_SWEEP_POINTS = 10, 20000
+
+
+def tool(name: str):
+    """tools/<name>.py of this checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def reference_names(state_dict, proj: bool) -> dict:
+    """The inverse of the bridge (``convert.reference_to_state_dict``): the
+    port's state_dict under the reference RegNet_v2's names and layouts (the
+    RGB encoder's Sequential indices 4 i and 4 i + 1, 1x1 Conv2d weights
+    (out, in, 1, 1), the pose heads' Conv1d (out, in, 1), ``bn_linear``)."""
+    out = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        head, leaf = parts[0], parts[-1]
+        t = t.detach().cpu().clone()
+        if head in ("sq", "sx"):
+            out[name] = t
+            continue
+        if head == "rgb_encoder":
+            stage, mod = int(parts[1].rsplit("_", 1)[1]), parts[2]
+            i = int(mod.rsplit("_", 1)[1])
+            out[f"RGB_net{stage + 1}.{4 * i + (not mod.startswith('Conv'))}.{leaf}"] = t
+            continue
+        if head in ("l3_head", "l4_head"):
+            out[f"{head}.{parts[1]}.composed_module.0.{leaf}"] = t[:, :, None] if t.ndim == 2 else t
+            continue
+        src = head.replace("lidar_lv", "LiDAR_lv")
+        if t.ndim == 2:
+            t = t[:, :, None, None]
+        if not proj and (head.startswith("lidar_lv") or head == "layer_idx"):
+            kind = "mlp_convs" if parts[1].startswith("Dense") else "mlp_bns"
+            out[f"{src}.{kind}.{parts[1].rsplit('_', 1)[1]}.{leaf}"] = t
+            continue
+        mid = {"Dense_0": "conv", "BatchNorm_0": "bn_linear", "BatchStatsNorm_0": "bn_linear"}
+        out[".".join([src] + [p.rsplit("_", 1)[1] if p.startswith("PointwiseConv_")
+                              else mid.get(p, p) for p in parts[1:-1]] + [leaf])] = t
+    return out
+
+
+class VisRecorder:
+    """Stands in for ``UniWriter`` on evaluate_torch.py --vis_rate: keeps
+    every image call (method, tag, step, array) and whether it was closed."""
+
+    made = []
+
+    def __init__(self, log_dir):
+        self.calls, self.closed = [], False
+        VisRecorder.made.append(self)
+
+    def add_image(self, tag, img, step):
+        self.calls.append(("add_image", tag, step, img))
+
+    def add_images(self, tag, imgs, step):
+        self.calls.append(("add_images", tag, step, imgs))
+
+    def close(self):
+        self.closed = True
+
+
+def decode_png(path: str):
+    """A PNG as the port's writer writes it (8-bit RGB, filter type 0 on
+    every row), decoded with zlib and numpy, each chunk's CRC checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        check(struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]
+              == zlib.crc32(kind + body) & 0xFFFFFFFF, f"{path}: bad CRC on {kind}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color = header[:4]
+    check(depth == 8 and color == 2, f"{path}: bit depth {depth}, colour type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0 (not the port's writer)")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def first_batch_forward(model, samples, proj: bool, dev):
+    """out3 of ``model`` on the first BATCH of ``samples``, as the loader
+    collates them."""
+    import torch
+
+    from i2pnet_tpu_torch.data import collate, prefetch_to_device
+    from i2pnet_tpu_torch.data.pipeline import to_model_batch
+
+    mb = to_model_batch(next(prefetch_to_device([collate(samples[:BATCH])], dev)))
+    with torch.no_grad():
+        if proj:
+            out = model(mb["rgb"], mb["lidar"], mb["raw_xyz"], mb["intrinsic"],
+                        lidar_feature=mb["lidar_feats"])
+        else:
+            out = model(mb["rgb"], mb["lidar"], mb["intrinsic"], lidar_feature=mb["lidar_feats"],
+                        raw_xyz=mb["raw_xyz"])
+    return out["out3"]
+
+
+def vis_evaluation(ctx, label, argv, model, proj, kernels, stand_ins, work):
+    """evaluate_torch.py --vis_rate 1 on a bridged log dir: the launches
+    (the validation batch's a batch), every kernel call against its plain
+    version, out3 equal to the seeded model's on the first batch, the four
+    tags every batch, the init and gt panels equal to render_projection
+    re-run in numpy and the pred panel on the logged out3; then the whole
+    pass's pairs/s with and without the overlays. Returns the shapes' rows
+    and the prediction file."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import evaluate_torch
+    from i2pnet_tpu_torch.cli import eval_split
+    from i2pnet_tpu_torch.eval.visualize import decalib_extrinsic, render_projection
+    from i2pnet_tpu_torch.utils import monitor
+
+    eargs = evaluate_torch.parse_args(argv)
+    with stand_ins():
+        ds = eval_split(eargs, model.cfg)
+        samples = [ds[i] for i in range(len(ds))]
+    batches = -(-len(samples) // BATCH)
+    val = PROJ_VAL_LAUNCHES if proj else FREE_VAL_LAUNCHES
+    log_dir = os.path.join(work, f"{label}_eval")
+    vis_argv = argv + ["--vis_rate", "1", "--log_dir", log_dir]
+    real, VisRecorder.made = monitor.UniWriter, []
+    monitor.UniWriter = VisRecorder
+    try:
+        with stand_ins(), Captures(kernels) as caps, CascadeRecorder() as rec:
+            summary = ctx.launches_of(label, run_launches(NO_LAUNCHES, val, 0, batches),
+                                      lambda: evaluate_torch.main(vis_argv))
+    finally:
+        monitor.UniWriter = real
+    check_eval_outputs(summary, log_dir, len(samples), f"phase 27 {label}")
+    with torch.no_grad():
+        errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                               caps[k["name"]].calls) for k in kernels}
+    want = first_batch_forward(model, samples, proj, ctx.dev)
+    check(torch.equal(want, rec.outs[0]), f"phase 27 {label}: out3 differs from the seeded "
+                                          f"model's on the first batch")
+    (writer,) = VisRecorder.made
+    steps = [(c[0], c[1], c[2]) for c in writer.calls]
+    check(writer.closed and steps == [(m, t, bi) for bi in range(batches) for m, t in zip(
+        ("add_image",) * 3 + ("add_images",), VIS_TAGS)], f"phase 27 {label}: writer calls {steps}")
+    eye = np.eye(3, 4, dtype=np.float32)
+    for bi in range(batches):
+        s = samples[bi * BATCH]
+        got = {c[1]: c[3] for c in writer.calls if c[2] == bi}
+        rgb = np.clip(s["rgb"], 0, 255).astype(np.uint8)
+        gt = decalib_extrinsic(s["decalib_real_gt"], s["decalib_dual_gt"])
+        out3 = rec.outs[bi][0].cpu().numpy()
+        pred = decalib_extrinsic(out3[:4], out3[4:])
+        for tag, E in (("init_projected_img", eye), ("gt_projected_img", gt),
+                       ("pj_projected_img", pred)):
+            check((got[tag] == render_projection(rgb, s["lidar"], E, s["init_intrinsic"])).all(),
+                  f"phase 27 {label}: batch {bi}'s {tag} differs from its numpy re-render")
+        check(got["comparison_img"].shape == (3, *rgb.shape), f"phase 27 {label}: comparison")
+    print(f"phase 27 {label}: evaluate_torch.py --vis_rate 1 over {len(samples)} pairs: the four "
+          f"tags at steps 0-{batches - 1}; init, gt and pred panels equal to render_projection "
+          f"re-run in numpy (pred on the logged out3); out3 of the first batch equal to the seeded "
+          f"model's, bit for bit")
+    rows = shape_rows(ctx, label, kernels, caps, ctx.path_launches[label], errors)
+    del caps, rec
+    rates = {}
+    for vis in (True, False):
+        extra = ["--vis_rate", "1"] if vis else []
+        monitor.UniWriter = VisRecorder
+        try:
+            with stand_ins():
+                t0 = time.perf_counter()
+                s2 = evaluate_torch.main(argv + extra + ["--log_dir", log_dir + f"_{vis}"])
+                rates[vis] = len(samples) / (time.perf_counter() - t0)
+        finally:
+            monitor.UniWriter = real
+        check(math.isfinite(s2["mean_fps"]), f"phase 27 {label}: summary {s2}")
+    print(f"phase 27 {label}: the whole evaluate_torch.py pass (loading included, no capture on) "
+          f"{rates[True]:.2f} pairs/s with the overlays, {rates[False]:.2f} without, on {ctx.card}")
+    return rows, os.path.join(log_dir, "prediction.txt")
+
+
+def bridge_phase(ctx, work: str):
+    """Phase 27: the seeded models of phases 4 and 10 through a reference
+    file, tools/reference_ckpt_to_torch.py and evaluate_torch.py
+    --vis_rate 1. Returns (rows, state for phase 28)."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
+    from i2pnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    convert = tool("reference_ckpt_to_torch")
+    lr_root = os.path.join(work, "lr_data")
+    write_large_range_tree(lr_root, LR_FRAMES)
+    cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
+    pcfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    state = {"cmr_root": os.path.join(work, "cmr_data"), "lr_root": lr_root}
+    rows = {}
+    for proj in (False, True):
+        family = "proj" if proj else "free"
+        model = init_random_((I2PNetProj(pcfg) if proj else I2PNet(cfg)),
+                             torch.Generator().manual_seed(SEED)).eval()
+        seeded = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        ref = reference_names(seeded, proj)
+        path = os.path.join(work, f"reference_{family}.pth")
+        torch.save({"model_state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 1},
+                   path)
+        out = os.path.join(work, f"bridged_{family}")
+        t0 = time.perf_counter()
+        convert.main([path, out] + (["--proj"] if proj else []))
+        bridged = CheckpointManager(out).restore_best("model_rotation_best")["model"]
+        check(sorted(bridged) == sorted(seeded) and all(torch.equal(bridged[k], seeded[k])
+                                                        for k in seeded),
+              f"phase 27 {family}: the bridged state_dict differs from the seeded one")
+        print(f"phase 27 {family}: {len(ref)} reference tensors ('module.' + RegNet_v2 names in "
+              f"'model_state_dict') -> tools/reference_ckpt_to_torch.py -> {len(bridged)} port "
+              f"tensors bit-identical to the seeded model's, in {time.perf_counter() - t0:.1f} s")
+        if proj:  # the large-range tree is read with numpy: nothing to stand in for
+            argv = ["--root_path", lr_root, "--network", "i2pnet_proj"]
+            kernels, stand_ins = [ctx.block, ctx.select], contextlib.nullcontext
+        else:
+            argv = ["--dataset", "kd_cmr_snr", "--network", "i2pnet", "--root_path",
+                    state["cmr_root"]]
+            kernels, stand_ins = ctx.eval_kernels, (lambda: StandIns("phase 27"))
+        argv += ["--model_dir", out, "--compute_dtype", "bfloat16", "--batch_size", str(BATCH)]
+        part, pred = vis_evaluation(ctx, f"vis_{family}_evaluate_cli", argv, model, proj, kernels,
+                                    stand_ins, work)
+        merge_rows(rows, part)
+        state[family] = out
+        state[f"{family}_pred"] = pred
+        del model
+    return rows, state
+
+
+def check_frames(out_dir, samples, out3, heat: bool, label: str) -> None:
+    """Every demo PNG decoded with zlib equals its panel re-rendered from the
+    frame's sample and logged out3."""
+    import numpy as np
+
+    from i2pnet_tpu_torch.eval.visualize import (decalib_extrinsic, render_comparison,
+                                                 render_error_heat)
+
+    eye = np.eye(3, 4, dtype=np.float32)
+    for i, (s, o) in enumerate(zip(samples, out3)):
+        rgb = np.clip(s["rgb"], 0, 255).astype(np.uint8)
+        # the demo's own order: the ground truth concatenated, then split
+        qt = np.concatenate([s["decalib_real_gt"], s["decalib_dual_gt"]])
+        pred, gt = decalib_extrinsic(o[:4], o[4:]), decalib_extrinsic(qt[:4], qt[4:])
+        want = render_comparison(rgb, s["lidar"], eye, pred, gt, s["init_intrinsic"])
+        if heat:
+            want = np.concatenate([want, render_error_heat(rgb, s["lidar"], pred, gt,
+                                                           s["init_intrinsic"])], axis=0)
+        got = decode_png(os.path.join(out_dir, f"frame_{i:06d}.png"))
+        check(got.shape == want.shape and bool((got == want).all()),
+              f"{label}: frame {i}'s PNG differs from its panel")
+
+
+def demo_phase(ctx, work: str, state: dict) -> dict:
+    """Phase 28: tools/render_demo_torch.py at B=1 on the bridged models (a
+    first frame with its kernel calls held against their plain versions and
+    timed, then DEMO_FRAMES frames), every PNG decoded with zlib; then
+    tools/render_real_demo_torch.py on a real-rig tree (``real_rig_demo``)."""
+    import numpy as np
+    import torch
+
+    import evaluate_torch
+    from i2pnet_tpu_torch.cli import eval_split
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+
+    demo = tool("render_demo_torch")
+    rows = {}
+    per_frame = dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1)
+    per_proj_frame = dict(NO_LAUNCHES, encoder_block=15, select=5)
+    for proj in (False, True):
+        family = "proj" if proj else "free"
+        if proj:
+            argv = ["--dataset", "kd_corr_nolidar", "--network", "i2pnet_proj", "--root_path",
+                    state["lr_root"]]
+            kernels, want, cfg = [ctx.block, ctx.select], per_proj_frame, I2PNetProjConfig()
+        else:
+            argv = ["--dataset", "kd_cmr_snr", "--network", "i2pnet", "--root_path",
+                    state["cmr_root"], "--heat"]
+            kernels, want, cfg = ctx.eval_kernels, per_frame, I2PNetConfig()
+        argv += ["--model_dir", state[family], "--compute_dtype", "bfloat16"]
+        out = os.path.join(work, f"demo_{family}")
+        label = f"demo_{family}_first_frame"
+        t_first = time.perf_counter()
+        with StandIns(f"phase 28 {family}"), Captures(kernels) as caps:
+            first = ctx.launches_of(label, want, lambda: demo.main(
+                argv + ["--out", out + "_first", "--frames", "1"]))
+        with torch.no_grad():
+            errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                                   caps[k["name"]].calls) for k in kernels}
+        batch_one = [tuple(a[0].shape)[0] for k in kernels for a, _ in caps[k["name"]].calls]
+        check(set(batch_one) == {1}, f"phase 28 {family}: batch sizes {set(batch_one)}")
+        t_rows = time.perf_counter()
+        merge_rows(rows, shape_rows(ctx, label, kernels, caps, ctx.path_launches[label], errors))
+        del caps
+        t_rows, t_first = time.perf_counter() - t_rows, t_rows - t_first
+        with StandIns(f"phase 28 {family} ({DEMO_FRAMES} frames)"):
+            t0 = time.perf_counter()
+            times = ctx.launches_of(f"demo_{family}", {k: v * DEMO_FRAMES for k, v in want.items()},
+                                    lambda: demo.main(argv + ["--out", out, "--frames",
+                                                              str(DEMO_FRAMES)]))
+            wall = time.perf_counter() - t0
+            eargs = evaluate_torch.parse_args([a for a in argv if a != "--heat"])
+            ds = eval_split(eargs, dataclasses.replace(cfg, compute_dtype="bfloat16"))
+            samples = [ds[i] for i in range(DEMO_FRAMES)]
+        check(np.array_equal(first["out3"][0], times["out3"][0]),
+              f"phase 28 {family}: the first frame's out3 differs between two runs")
+        t_check = time.perf_counter()
+        check_frames(out, samples, times["out3"], not proj, f"phase 28 {family}")
+        t_check = time.perf_counter() - t_check
+        med = {k: statistics.median(times[k]) for k in ("forward_ms", "render_ms", "write_ms")}
+        print(f"phase 28 {family} demo: {DEMO_FRAMES} frames at B=1 in {wall:.1f} s, every PNG "
+              f"decoded with zlib equal to its panel; median ms a frame: forward "
+              f"{med['forward_ms']:.1f} (the first {times['forward_ms'][0]:.1f}), render "
+              f"{med['render_ms']:.1f}, PNG write {med['write_ms']:.1f} (zlib) on {ctx.card}")
+        print(f"phase 28 {family}: the first-frame run and its checks {t_first:.1f} s, its calls "
+              f"timed {t_rows:.1f} s, the PNGs decoded and re-rendered {t_check:.1f} s")
+
+    real_rig_demo(ctx, work, state)
+    return rows
+
+
+def real_rig_demo(ctx, work: str, state: dict) -> None:
+    """Phase 28's tools/render_real_demo_torch.py on a real-rig tree, with
+    phase 27's free prediction file. The frames are PNGs that
+    ``realloc.read_image`` decodes (cv2, else PIL), each held to the array
+    written; where neither is installed, .npy frames under .jpg names read
+    by ``read_npy_frame``."""
+    import importlib.util
+
+    import numpy as np
+
+    from i2pnet_tpu_torch.data import realloc
+    from i2pnet_tpu_torch.eval.analysis import parse_prediction_file
+    from i2pnet_tpu_torch.eval.visualize import render_comparison, write_png
+
+    readers = {m: importlib.util.find_spec(m) is not None
+               for m in ("PIL", "h5py", "cv2", "imageio")}
+    decode = readers["cv2"] or readers["PIL"]
+    t_tree = time.perf_counter()
+    rng = np.random.default_rng(SEED + 28)
+    root = os.path.join(work, "real_localize")
+    stamps = [f"{1690000000 + i}.{i}" for i in range(REAL_FRAMES)]
+    frames = []
+    for d in ("velodyne", "images"):
+        os.makedirs(os.path.join(root, "sequences", "00", d))
+    for ts in stamps:
+        pc = street_map(rng, REAL_POINTS)
+        np.concatenate([pc.T, rng.uniform(0, 1, (REAL_POINTS, 1))], 1).astype(np.float32).tofile(
+            os.path.join(root, "sequences", "00", "velodyne", ts + ".bin"))
+        frame = rng.integers(0, 256, size=REAL_FRAME, dtype=np.uint8)
+        frames.append(frame)
+        images = os.path.join(root, "sequences", "00", "images", ts)
+        if decode:
+            write_png(images + ".png", frame)
+        else:
+            with open(images + ".jpg", "wb") as f:
+                np.save(f, frame)
+    real = tool("render_real_demo_torch")
+    t_tree = time.perf_counter() - t_tree
+    saved = realloc.read_image
+    if not decode:
+        realloc.read_image = read_npy_frame
+    try:
+        t0 = time.perf_counter()
+        n = real.main(["--root", root, "--pred", state["free_pred"], "--out",
+                       os.path.join(work, "real_demo"), "--frames", str(REAL_FRAMES)])
+        wall = time.perf_counter() - t0
+        mats = parse_prediction_file(state["free_pred"])
+        ds = realloc.RealLocVisDataset(root)
+        for i in range(n):
+            s = ds[i]
+            check(np.array_equal(s["img"], frames[i]),
+                  f"phase 28 real demo: frame {i} decoded differs from the array written")
+            want = render_comparison(s["img"], s["pcl"].astype(np.float32), mats["init"][i],
+                                     mats["pred"][i], mats["gt"][i], s["K"])
+            got = decode_png(os.path.join(work, "real_demo", f"{s['seq']}_{s['ts']}.png"))
+            check(got.shape == want.shape and bool((got == want).all()),
+                  f"phase 28 real demo: frame {i}'s PNG differs from its panel")
+    finally:
+        realloc.read_image = saved
+    check(n == REAL_FRAMES, f"phase 28 real demo: {n} frames")
+    how = ("PNGs decoded by realloc.read_image, equal to the arrays written" if decode else
+           "realloc.read_image stood in: the frames are .npy under .jpg names")
+    print(f"phase 28: importable here {readers}")
+    print(f"phase 28 real-rig demo ({how}): {n} frames of {REAL_FRAME[1]}x{REAL_FRAME[0]} "
+          f"and {REAL_POINTS} points, {wall * 1e3 / n:.1f} ms a frame (read, render, PNG "
+          f"write), every PNG equal to its panel on {ctx.card}; the tree written in "
+          f"{t_tree:.1f} s")
+
+
+def write_raw_odometry(root: str, rng) -> None:
+    """A raw KITTI odometry sequence as numpy writes it: velodyne .bin scans
+    of a street (RAW_POINTS each), poses.txt (the sensor 1.5 m a frame
+    ahead, turning slowly) and calib.txt."""
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "velodyne"))
+    for i in range(RAW_FRAMES):
+        pc = street_map(rng, RAW_POINTS, 2.0, 40.0)
+        np.concatenate([pc.T, rng.uniform(0, 1, (RAW_POINTS, 1))], 1).astype(np.float32).tofile(
+            os.path.join(root, "velodyne", "%06d.bin" % i))
+    rows = []
+    for i in range(RAW_FRAMES):
+        a = 0.01 * i
+        R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+        rows.append(np.hstack([R, [[1.5 * i], [0.05 * i], [0.0]]]).reshape(-1))
+    np.savetxt(os.path.join(root, "poses.txt"), np.array(rows))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(KITTI_CALIB)
+
+
+def write_nus_tables(root: str, rng) -> None:
+    """A nuScenes v1.0 tree as numpy and json write it: one daytime and one
+    night scene of NUS_KEYS key frames with a sweep between each two
+    (LIDAR_TOP .pcd.bin, NUS_SWEEP_POINTS points in the local-map box),
+    CAM_FRONT frames (NUS_FRAME, .npy under .jpg names) and the seven JSON
+    tables, the ego yawed and driving ahead."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    def wxyz(rot):
+        x, y, z, w = rot.as_quat()
+        return [float(w), float(x), float(y), float(z)]
+
+    for d in ("samples/LIDAR_TOP", "sweeps/LIDAR_TOP", "samples/CAM_FRONT", "v1.0-trainval"):
+        os.makedirs(os.path.join(root, d))
+    yaw = wxyz(Rotation.from_euler("z", 0.2))
+    cam_rot = wxyz(Rotation.from_matrix(np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0],
+                                                  [0.0, -1.0, 0.0]])))
+    t = {name: [] for name in ("scene", "sample", "sample_data", "ego_pose", "calibrated_sensor")}
+    t["sensor"] = [{"token": "sen_lidar", "channel": "LIDAR_TOP", "modality": "lidar"},
+                   {"token": "sen_cam", "channel": "CAM_FRONT", "modality": "camera"}]
+    t["log"] = [{"token": "log0", "logfile": "n008", "vehicle": "n008",
+                 "date_captured": "2018-08-01", "location": "boston-seaport"}]
+
+    def pose(tok, x, rot=yaw, z=0.0):
+        t["ego_pose"].append({"token": f"ep_{tok}", "rotation": rot, "translation": [x, 0.0, z]})
+
+    for name, desc in (("scene-0001", "Parked truck, sunny"), ("scene-0002", "Night drive")):
+        chain = []
+        for i in range(NUS_KEYS):
+            chain.append((f"{name}_L{i}", True, i))
+            if i + 1 < NUS_KEYS:
+                chain.append((f"{name}_M{i}", False, i + 1))
+            t["sample"].append({"token": f"{name}_S{i}", "scene_token": f"scene_{name}",
+                                "prev": f"{name}_S{i - 1}" if i else "",
+                                "next": f"{name}_S{i + 1}" if i + 1 < NUS_KEYS else ""})
+        for j, (tok, key, si) in enumerate(chain):
+            pose(tok, 0.25 * j)
+            t["calibrated_sensor"].append({"token": f"cs_{tok}", "sensor_token": "sen_lidar",
+                                           "translation": [0.0, 0.0, 1.8],
+                                           "rotation": [1.0, 0.0, 0.0, 0.0],
+                                           "camera_intrinsic": []})
+            fn = f"{'samples' if key else 'sweeps'}/LIDAR_TOP/{tok}.pcd.bin"
+            if name == "scene-0001":  # the night scene is filtered before any read
+                pts = rng.uniform([-12, -7, -2], [12, 17, 3], size=(NUS_SWEEP_POINTS, 3))
+                np.concatenate([pts, rng.uniform(0, 1, (NUS_SWEEP_POINTS, 1)),
+                                np.zeros((NUS_SWEEP_POINTS, 1))], 1).astype(np.float32).tofile(
+                    os.path.join(root, fn))
+            t["sample_data"].append({
+                "token": tok, "sample_token": f"{name}_S{si}", "ego_pose_token": f"ep_{tok}",
+                "calibrated_sensor_token": f"cs_{tok}", "is_key_frame": key, "filename": fn,
+                "prev": chain[j - 1][0] if j else "",
+                "next": chain[j + 1][0] if j + 1 < len(chain) else ""})
+        for i in range(NUS_KEYS):
+            tok = f"{name}_CAM_FRONT_{i}"
+            pose(tok, 0.5 * i + 0.1)
+            t["calibrated_sensor"].append({"token": f"cs_{tok}", "sensor_token": "sen_cam",
+                                           "translation": [1.5, 0.0, 1.5], "rotation": cam_rot,
+                                           "camera_intrinsic": [list(r) for r in NUS_K]})
+            fn = f"samples/CAM_FRONT/{tok}.jpg"
+            if name == "scene-0001":
+                with open(os.path.join(root, fn), "wb") as f:
+                    np.save(f, rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8))
+            t["sample_data"].append({
+                "token": tok, "sample_token": f"{name}_S{i}", "ego_pose_token": f"ep_{tok}",
+                "calibrated_sensor_token": f"cs_{tok}", "is_key_frame": True, "filename": fn,
+                "prev": f"{name}_CAM_FRONT_{i - 1}" if i else "",
+                "next": f"{name}_CAM_FRONT_{i + 1}" if i + 1 < NUS_KEYS else ""})
+        t["scene"].append({"token": f"scene_{name}", "log_token": "log0", "name": name,
+                           "description": desc, "first_sample_token": f"{name}_S0",
+                           "nbr_samples": NUS_KEYS})
+    for name, records in t.items():
+        with open(os.path.join(root, "v1.0-trainval", f"{name}.json"), "w") as f:
+            json.dump(records, f)
+
+
+def npz_local_map(path, pc, intensity) -> None:
+    """Stands in for the builders' ``write_local_map`` (h5py): the map's 'PC'
+    and 'intensity' as an npz under the map's .h5 name, which
+    ``read_npz_map`` reads back."""
+    import numpy as np
+
+    with open(path, "wb") as f:
+        np.savez(f, PC=pc, intensity=intensity)
+
+
+def builders_phase(ctx, work: str) -> None:
+    """Phase 29: the offline builders on the card's host, from raw files
+    numpy writes, with only the h5 writes stood in (``npz_local_map``):
+    a KITTI odometry sequence (scans with normals, pose npz, the
+    accumulation, the local maps) read by KittiOdometryCMRDataset, and a
+    nuScenes split (NuScenesLite over v1.0 JSON tables, generate_split) read
+    by NuScenesCMRDataset; one free forward on the card from each."""
+    import numpy as np
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.data import (KittiOdometryCMRDataset, NuScenesCMRDataset, collate,
+                                       prefetch_to_device)
+    from i2pnet_tpu_torch.data import preprocess as PP
+    from i2pnet_tpu_torch.data import preprocess_nuscenes as PN
+    from i2pnet_tpu_torch.data.nuscenes_lite import NuScenesLite
+    from i2pnet_tpu_torch.data.pipeline import to_model_batch
+    from i2pnet_tpu_torch.models import I2PNet, init_random_
+
+    rng = np.random.default_rng(SEED + 29)
+    raw = os.path.join(work, "raw_odometry", "00")
+    write_raw_odometry(raw, rng)
+    seconds = {}
+    t0 = time.perf_counter()
+    for i in range(RAW_FRAMES):
+        PP.bin_to_npy_with_normals(os.path.join(raw, "velodyne", "%06d.bin" % i),
+                                   os.path.join(raw, "snr", "%06d.npy" % i), voxel=0.1)
+    seconds["bin_to_npy_with_normals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PP.poses_to_npz(os.path.join(raw, "poses.txt"), os.path.join(raw, "poses"))
+    seconds["poses_to_npz"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = PP.process_sequence_accumulation(os.path.join(raw, "snr"), os.path.join(raw, "poses"),
+                                         os.path.join(raw, "calib.txt"),
+                                         os.path.join(raw, "snr_acc"), os.path.join(raw, "acc"))
+    seconds["process_sequence_accumulation"] = time.perf_counter() - t0
+    acc = np.load(os.path.join(raw, "snr_acc", "000005.npy"))
+    check(n == RAW_FRAMES and acc.shape[0] == 7 and acc.shape[1] <= 2 * 20480
+          and bool(np.isfinite(acc).all()), f"phase 29: accumulation {n}, {acc.shape}")
+    seq = os.path.join(work, "built", "kitti_processed_CMRNet", "sequences", "00")
+    scans = [np.fromfile(os.path.join(raw, "velodyne", "%06d.bin" % i), np.float32).reshape(-1, 4)
+             for i in range(RAW_FRAMES)]
+    poses = [PP._load_pose(os.path.join(raw, "poses", "%06d.npz" % i)) for i in range(RAW_FRAMES)]
+    saved = PP.write_local_map
+    PP.write_local_map = npz_local_map
+    try:
+        t0 = time.perf_counter()
+        PP.build_local_maps(scans, poses, os.path.join(seq, "local_maps"))
+        seconds["build_local_maps"] = time.perf_counter() - t0
+    finally:
+        PP.write_local_map = saved
+    os.makedirs(os.path.join(seq, "image_2_npy"))
+    for i in range(RAW_FRAMES):
+        np.save(os.path.join(seq, "image_2_npy", "%06d.npy" % i),
+                rng.integers(0, 256, size=(376, 1241, 3), dtype=np.uint8))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write(KITTI_CALIB)
+    print(f"phase 29 KITTI odometry builders on a raw sequence of {RAW_FRAMES} scans of "
+          f"{RAW_POINTS} points (write_local_map stood in: npz under the .h5 names): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+
+    cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
+    model = init_random_(I2PNet(cfg), torch.Generator().manual_seed(SEED)).eval()
+
+    def forward(ds, label):
+        batch = to_model_batch(next(prefetch_to_device([collate([ds[i] for i in range(BATCH)])],
+                                                       ctx.dev)))
+        with torch.no_grad(), Captures(ctx.eval_kernels) as caps:
+            out = ctx.launches_of(label, FREE_VAL_LAUNCHES, lambda: model(
+                batch["rgb"], batch["lidar"], batch["intrinsic"],
+                lidar_feature=batch["lidar_feats"], raw_xyz=batch["raw_xyz"]))
+            for k in ctx.eval_kernels:
+                eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                  caps[k["name"]].calls)
+        check(bool(torch.isfinite(out["out3"]).all()), f"phase 29 {label}: out3 not finite")
+        return tuple(batch["rgb"].shape), tuple(batch["lidar"].shape)
+
+    with StandIns("phase 29 (KITTI)"):
+        ds = KittiOdometryCMRDataset(os.path.join(work, "built"), mode="test", seed=0)
+        check(len(ds) == RAW_FRAMES, f"phase 29: {len(ds)} KITTI samples")
+        shapes = forward(ds, "built_kitti_eval")
+    print(f"phase 29: KittiOdometryCMRDataset reads the built sequence ({len(ds)} frames); a free "
+          f"forward on its first batch {shapes}: finite, every kernel call held against its plain "
+          f"version")
+
+    nus_root = os.path.join(work, "nus_raw")
+    write_nus_tables(nus_root, rng)
+    seconds = {}
+    t0 = time.perf_counter()
+    nusc = NuScenesLite(nus_root)
+    seconds["NuScenesLite"] = time.perf_counter() - t0
+    check(nusc.get("sample", "scene-0001_S0")["data"] == {"LIDAR_TOP": "scene-0001_L0",
+                                                           "CAM_FRONT": "scene-0001_CAM_FRONT_0"},
+          "phase 29: NuScenesLite's reverse index")
+    out = os.path.join(work, "nus_built")
+    saved = PN.write_local_map
+    PN.write_local_map = npz_local_map
+    try:
+        t0 = time.perf_counter()
+        path, entries = PN.generate_split(nusc, out, (0, 10), 1, "test_dataset0.list", seed=0)
+        seconds["generate_split"] = time.perf_counter() - t0
+    finally:
+        PN.write_local_map = saved
+    check(entries == NUS_KEYS, f"phase 29: {entries} nuScenes entries")
+    print(f"phase 29 nuScenes builders (one daytime scene of {NUS_KEYS} key frames kept, the "
+          f"night one filtered; write_local_map stood in): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    with StandIns("phase 29 (nuScenes)", frames=True):
+        ds = NuScenesCMRDataset(out, [path], mode="test", seed=0)
+        shapes = forward(ds, "built_nus_eval")
+    print(f"phase 29: NuScenesCMRDataset reads the built split ({len(ds)} entries); a free forward "
+          f"on its first batch {shapes}: finite, every kernel call held against its plain version")
 
 
 def main() -> int:
@@ -3030,11 +3713,25 @@ def main() -> int:
         parts.append(nus_cmr_phase(ctx, work, frames))
         print(f"phase 26: {time.perf_counter() - t0:.1f} s on {card}")
         print(f"phases 24-26: {time.perf_counter() - t_loc:.1f} s on {card}")
+
+        # --- phases 27-29: the reference-checkpoint bridge and --vis_rate,
+        # the demo renderers at B=1, the offline builders
+        t_user = time.perf_counter()
+        t0 = time.perf_counter()
+        part, state = bridge_phase(ctx, work)
+        parts.append(part)
+        print(f"phase 27: {time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        parts.append(demo_phase(ctx, work, state))
+        print(f"phase 28: {time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        builders_phase(ctx, work)
+        print(f"phase 29: {time.perf_counter() - t0:.1f} s on {card}")
+        print(f"phases 27-29: {time.perf_counter() - t_user:.1f} s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for part in parts:
-        for name, entry in part.items():
-            timed.setdefault(name, {}).update(entry)
+        merge_rows(timed, part)
     for row in rows:  # each kernel's calls on the new paths, timed as the row is
         if row["name"] in timed:
             row["new_paths"] = timed[row["name"]]

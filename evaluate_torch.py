@@ -15,8 +15,11 @@ test drive (``kitti``, fixed decalibrations; ``--efgh`` for the efgh
 model), or nuScenes (``nus_cmr_snr`` with its own --test_rt,
 ``nus_corr_nolidar``; ``test_dataset*.list`` under --root_path), and writes
 log_test.txt, prediction.txt and a metrics npz under --log_dir in the JAX
-package's formats; --analyze prints recall stats from the npz. Runs on the
-CUDA card unless ``--device cpu`` is given.
+package's formats; --analyze prints recall stats from the npz; --vis_rate N
+logs the init/pred/gt projection overlays of sample 0 of every Nth batch to
+a ``UniWriter`` on --log_dir (TensorBoard where tensorboardX is installed).
+Runs on the CUDA card unless ``--device cpu`` is given. The reference's
+released weights are converted with ``tools/reference_ckpt_to_torch.py``.
 
     python3 evaluate_torch.py --model_dir runA runB --compute_dtype bfloat16
     python3 evaluate_torch.py --dataset kd_cmr_snr --network i2pnet --model_dir log/cmr \\
@@ -30,7 +33,6 @@ import glob
 import os
 import warnings
 
-_ITEM5 = "ROADMAP queue 1, item 5"
 # the datasets whose loaders read --test_rt (evaluate.py)
 _READS_TEST_RT = ("kd_cmr_snr", "nus_cmr_snr")
 
@@ -66,7 +68,8 @@ def parse_args(argv=None):
                    choices=["float32", "bfloat16"])
     p.add_argument("--analyze", action="store_true")
     p.add_argument("--vis_rate", type=int, default=0,
-                   help=f"projection overlays; not ported ({_ITEM5}): only 0")
+                   help="log the projection overlays of sample 0 of every Nth batch "
+                        "to a writer on --log_dir; 0 logs none")
     p.add_argument("--efgh", action="store_true",
                    help="online-calibration EFGH variant (kitti dataset, free-point "
                         "network): thread data['calib'] through the forward")
@@ -87,8 +90,6 @@ def _refuse_unported(args) -> None:
     if args.test_rt and args.dataset not in _READS_TEST_RT:
         warnings.warn(f"--test_rt {args.test_rt}: the {args.dataset} loader does not read it "
                       "(evaluate.py ignores it too)")
-    if args.vis_rate > 0:
-        raise NotImplementedError(f"--vis_rate: eval/visualize.py is not ported ({_ITEM5})")
     if args.dp:
         raise NotImplementedError("--dp: the data-parallel fan-out is not ported "
                                   "(ROADMAP queue 1, item 9)")
@@ -103,6 +104,7 @@ def main(argv=None):
     from i2pnet_tpu_torch.data import BatchLoader
     from i2pnet_tpu_torch.eval import Evaluator, recall_analysis
     from i2pnet_tpu_torch.train.checkpoint import restore_inference_variables
+    from i2pnet_tpu_torch.utils.monitor import UniWriter
     from i2pnet_tpu_torch.utils.seeding import set_seed
 
     set_seed(args.seed)
@@ -117,9 +119,13 @@ def main(argv=None):
     # template sample; the port draws none, so the split starts from the seed
     test_ds = eval_split(args, cfg)
     loader = BatchLoader(test_ds, args.batch_size, shuffle=False, drop_last=False)
+    writer = UniWriter(args.log_dir) if args.vis_rate > 0 else None
     evaluator = Evaluator(models, cfg, proj=proj, log_dir=args.log_dir, tag=args.tag,
-                          device=args.device, debug_nans=args.debug_nans)
+                          writer=writer, vis_rate=args.vis_rate, device=args.device,
+                          debug_nans=args.debug_nans)
     summary = evaluator.validate(loader)
+    if writer is not None:
+        writer.close()
     print("== evaluation summary ==")
     for k, v in summary.items():
         print(f"  {k}: {v}")

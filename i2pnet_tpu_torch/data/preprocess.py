@@ -1,12 +1,24 @@
-"""The fixed-decalibration tables of the evaluation protocols, the port's
-copy of the table helpers of ``i2pnet_tpu/data/preprocess.py``: the test
-tables of the KITTI odometry and nuScenes small-range protocols
-(``generate_test_rt``, ``load_test_rt``, the 10-seed protocol's
+"""Offline preprocessing and the protocols' fixed-decalibration tables: the
+port of ``i2pnet_tpu/data/preprocess.py``.
+
+The offline builders (ref data_preprocess/), numpy and scipy only:
+  * ``bin_to_npy_with_normals``: kitti_pc_bin_to_npy_with_downsample_sn.py
+    (a voxel downsample and PCA surface normals over a hybrid KD-tree search,
+    r=0.6, nn=30: scipy's cKDTree for Open3D's);
+  * ``images_to_npy``: kitti_png_to_npy.py (PIL, imported inside);
+  * ``poses_to_npz``: kitti_pose.py;
+  * ``build_local_maps``: CMRNet_script/kitti_maps_cmr.py (a voxelised
+    accumulated map and one local crop a frame; the h5 files through
+    ``write_local_map``, the one function that imports h5py);
+  * ``accumulate_point_cloud`` / ``process_sequence_accumulation``:
+    kitti_pc_acc.py (neighbour sweeps accumulated into each frame).
+
+The tables: the test tables of the KITTI odometry and nuScenes small-range
+protocols (``generate_test_rt``, ``load_test_rt``, the 10-seed protocol's
 ``cmr_seed_value`` and ``cmr_test_rt_path``) and the RGGNet protocol's
-splits (``RGG_SPLITS``, ``generate_rgg_splits``). numpy and the standard
-library only: ``load_test_rt`` reads CSV tables with the ``csv`` module, so
-``--test_rt`` runs where pandas is not installed. The offline map builders
-of that module (h5py, PIL) are not ported."""
+splits (``RGG_SPLITS``, ``generate_rgg_splits``). ``load_test_rt`` reads
+CSV tables with the ``csv`` module, so ``--test_rt`` runs where pandas is
+not installed."""
 
 from __future__ import annotations
 
@@ -14,7 +26,7 @@ import csv
 import os
 import pickle
 import re
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -223,3 +235,183 @@ def cmr_test_rt_path(dir_path: str, seq: str, max_r: float, max_t: float,
     ``test_RT_seq<seq>_<max_r>_<max_t>_<tag>.pkl``."""
     return os.path.join(
         dir_path, f"test_RT_seq{seq}_{max_r:.2f}_{max_t:.2f}_{cmr_seed_value(cmr_seed):d}.pkl")
+
+
+def voxel_downsample(points: np.ndarray, voxel: float) -> np.ndarray:
+    """Average points per voxel. points: (N, C) with xyz first."""
+    coords = np.floor_divide(points[:, :3] - points[:, :3].min(0), voxel).astype(np.int64)
+    _, inverse, counts = np.unique(coords, axis=0, return_inverse=True, return_counts=True)
+    out = np.zeros((counts.shape[0], points.shape[1]), np.float64)
+    np.add.at(out, inverse, points)
+    return (out / counts[:, None]).astype(np.float32)
+
+
+def estimate_normals(points: np.ndarray, radius: float = 0.6, max_nn: int = 30) -> np.ndarray:
+    """PCA surface normals over a hybrid KD-tree search (the reference's
+    Open3D KDTreeSearchParamHybrid(radius=0.6, max_nn=30)); a point with
+    fewer than 3 neighbours gets (0, 0, 1)."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    dists, idx = tree.query(points, k=max_nn, distance_upper_bound=radius)
+    normals = np.zeros_like(points)
+    valid = dists < np.inf
+    for i in range(points.shape[0]):
+        nbrs = idx[i][valid[i]]
+        if len(nbrs) < 3:
+            normals[i] = [0, 0, 1]
+            continue
+        p = points[nbrs] - points[nbrs].mean(0)
+        cov = p.T @ p
+        w, v = np.linalg.eigh(cov)
+        normals[i] = v[:, 0]
+    return normals.astype(np.float32)
+
+
+def bin_to_npy_with_normals(bin_path: str, out_path: str, voxel: float = 0.1,
+                            sn_radius: float = 0.6, sn_max_nn: int = 30) -> np.ndarray:
+    """A velodyne .bin -> a (7, N) npy of rows [x, y, z, intensity, nx, ny, nz]."""
+    pts = np.fromfile(bin_path, np.float32).reshape(-1, 4)
+    if voxel > 0:
+        pts = voxel_downsample(pts, voxel)
+    normals = estimate_normals(pts[:, :3], sn_radius, sn_max_nn)
+    out = np.concatenate([pts, normals], axis=1).T.astype(np.float32)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    np.save(out_path, out)
+    return out
+
+
+def images_to_npy(img_dir: str, out_dir: str) -> int:
+    """The PNG images of a directory -> uint8 npy arrays (ref
+    kitti_png_to_npy.py:20-33); PIL decodes them."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    n = 0
+    for fname in sorted(os.listdir(img_dir)):
+        if not fname.endswith(".png"):
+            continue
+        arr = np.array(Image.open(os.path.join(img_dir, fname)), np.uint8)
+        np.save(os.path.join(out_dir, fname.replace(".png", ".npy")), arr)
+        n += 1
+    return n
+
+
+def poses_to_npz(pose_txt: str, out_dir: str) -> int:
+    """An odometry pose txt (12 floats a row) -> one 4x4 npz a frame
+    (ref kitti_pose.py:26-44)."""
+    os.makedirs(out_dir, exist_ok=True)
+    poses = np.loadtxt(pose_txt).reshape(-1, 3, 4)
+    for i, p in enumerate(poses):
+        T = np.vstack([p, [0, 0, 0, 1]])
+        np.savez(os.path.join(out_dir, "%06d.npz" % i), pose=T)
+    return len(poses)
+
+
+def write_local_map(path: str, pc: np.ndarray, intensity: np.ndarray) -> None:
+    """One local map as h5: datasets 'PC' (4, N) and 'intensity' (1, N),
+    uncompressed, as the JAX package writes them."""
+    import h5py
+
+    with h5py.File(path, "w") as hf:
+        hf["PC"] = pc
+        hf["intensity"] = intensity
+
+
+def build_local_maps(scans: Sequence[np.ndarray], poses: Sequence[np.ndarray], out_dir: str,
+                     voxel: float = 0.1, x_range: Tuple[float, float] = (-10.0, 100.0),
+                     y_range: Tuple[float, float] = (-25.0, 25.0)) -> int:
+    """Accumulate scans into a voxelised global map, then crop one local map
+    a pose into ``out_dir/%06d.h5`` (ref CMRNet_script/kitti_maps_cmr.py:43-120).
+
+    scans: (N_i, >=4) arrays [xyz, intensity] in the sensor frame; poses:
+    4x4 sensor-to-world transforms."""
+    world = []
+    for scan, T in zip(scans, poses):
+        xyz1 = np.concatenate([scan[:, :3], np.ones((scan.shape[0], 1))], axis=1)
+        w = (T @ xyz1.T).T[:, :3]
+        world.append(np.concatenate([w, scan[:, 3:4]], axis=1))
+    gmap = voxel_downsample(np.concatenate(world, 0), voxel)
+
+    os.makedirs(out_dir, exist_ok=True)
+    for i, T in enumerate(poses):
+        Tinv = np.linalg.inv(T)
+        local = (Tinv @ np.concatenate([gmap[:, :3], np.ones((gmap.shape[0], 1))], axis=1).T
+                 ).T[:, :3]
+        m = ((local[:, 0] > x_range[0]) & (local[:, 0] < x_range[1])
+             & (local[:, 1] > y_range[0]) & (local[:, 1] < y_range[1]))
+        write_local_map(
+            os.path.join(out_dir, "%06d.h5" % i),
+            np.concatenate([local[m].T, np.ones((1, int(m.sum())))], axis=0).astype(np.float32),
+            gmap[m, 3:4].T.astype(np.float32))
+    return len(poses)
+
+
+def _load_pose(path: str) -> np.ndarray:
+    """A frame's 4x4 pose npz: this package's 'pose' key or the reference's
+    positional 'arr_0' (ref kitti_pc_acc.py:47,81)."""
+    d = np.load(path)
+    return (d["pose"] if "pose" in d else d["arr_0"]).astype(np.float32)
+
+
+def accumulate_point_cloud(pc_folder: str, pose_folder: str, seq_i: int, seq_sample_num: int,
+                           Pc: np.ndarray, accumulation_frame_num: int = 3,
+                           accumulation_frame_skip: int = 6,
+                           rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Neighbour sweeps accumulated into frame i's cloud (ref
+    data_preprocess/kitti_pc_acc.py:25-112 get_accumulated_pc).
+
+    pc_folder holds (7, N) npys [xyz, intensity, normals]; pose_folder one
+    4x4 npz a frame. Up to accumulation_frame_num frames are taken every
+    accumulation_frame_skip steps in each direction; each is warped into
+    frame i's camera-conditioned frame by Pc^-1 @ P_i^-1 P_j @ Pc, its
+    normals by the rotation alone. Frame i's own points are shuffled first
+    (downstream loaders truncate, so the order must not encode the scan
+    pattern). Returns (7, M) [xyz, intensity, normals]."""
+    rng = rng or np.random.default_rng(0)
+    data = np.load(os.path.join(pc_folder, "%06d.npy" % seq_i)).astype(np.float32)
+    data = data[:, rng.permutation(data.shape[1])]
+    parts = [data]
+    P_oi = _load_pose(os.path.join(pose_folder, "%06d.npz" % seq_i))
+    P_io = np.linalg.inv(P_oi)
+    Pc_inv = np.linalg.inv(Pc)
+    for stride in (-accumulation_frame_skip, accumulation_frame_skip):
+        counter = 0
+        found = 0
+        while found < accumulation_frame_num:
+            counter += 1
+            seq_j = seq_i + stride * counter
+            if seq_j < 0 or seq_j >= seq_sample_num:
+                break
+            nb = np.load(os.path.join(pc_folder, "%06d.npy" % seq_j)).astype(np.float32)
+            P_oj = _load_pose(os.path.join(pose_folder, "%06d.npz" % seq_j))
+            P = Pc_inv @ (P_io @ P_oj) @ Pc
+            xyz = P[:3, :3] @ nb[0:3] + P[:3, 3:4]
+            sn = P[:3, :3] @ nb[4:7]
+            parts.append(np.concatenate([xyz, nb[3:4], sn], axis=0))
+            found += 1
+    return np.concatenate(parts, axis=1)
+
+
+def process_sequence_accumulation(pc_folder: str, pose_folder: str, calib_path: str,
+                                  out_folder_snr: str, out_folder_pc: str,
+                                  downsample_voxel: float = 0.3, max_points: int = 2 * 20480,
+                                  seed: int = 0) -> int:
+    """kitti_pc_acc.py's per-sequence driver (ref :163-202): accumulate every
+    frame, voxel-downsample where the cloud exceeds max_points, and write the
+    full (7, N) '*_snr_acc' npy and the bare-xyz '*_acc' npy."""
+    from i2pnet_tpu_torch.data.calib import read_calib
+
+    Tr, _, P = read_calib(calib_path)
+    Pc = P @ np.vstack([Tr, [0, 0, 0, 1]])
+    os.makedirs(out_folder_snr, exist_ok=True)
+    os.makedirs(out_folder_pc, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = len([f for f in os.listdir(pc_folder) if f.endswith(".npy")])
+    for i in range(n):
+        acc = accumulate_point_cloud(pc_folder, pose_folder, i, n, Pc, rng=rng)
+        if acc.shape[1] > max_points:
+            acc = voxel_downsample(acc.T, downsample_voxel).T
+        np.save(os.path.join(out_folder_snr, "%06d.npy" % i), acc.astype(np.float32))
+        np.save(os.path.join(out_folder_pc, "%06d.npy" % i), acc[0:3].astype(np.float32))
+    return n

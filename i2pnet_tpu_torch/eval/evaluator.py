@@ -44,19 +44,19 @@ class Evaluator:
         proj: bool = False,
         log_dir: str = "info_test",
         tag: str = "",
+        writer=None,
         vis_rate: int = 0,
         mesh=None,
         device=None,
         debug_nans: bool = False,
     ):
-        """device: the models' device, the card unless ``"cpu"`` is given
+        """writer, vis_rate: with a writer (``utils/monitor.py`` ``UniWriter``)
+        and vis_rate=N, sample 0 of every Nth batch is drawn as init, pred
+        and gt projection overlays (``_log_projection_images``); 0 draws
+        none. device: the models' device, the card unless ``"cpu"`` is given
         (without a card that raises). debug_nans: check every stage's
         out3/out4 with ``torch.isfinite`` and raise on the first non-finite
         batch."""
-        if vis_rate:
-            raise NotImplementedError(
-                "projection overlays (vis_rate, eval/visualize.py) are not ported yet: "
-                "ROADMAP queue 1, item 5")
         if mesh is not None:
             raise NotImplementedError(
                 "the data-parallel eval fan-out is not ported yet: ROADMAP queue 1, item 9")
@@ -73,12 +73,43 @@ class Evaluator:
         self.log_dir = log_dir
         self.tag = tag
         self.debug_nans = debug_nans
+        # projection-image fan-out (ref evaluation.py:630-657 logs the
+        # init/pred/gt overlays and an NHWC comparison batch to the writer)
+        self.writer = writer
+        self.vis_rate = int(vis_rate)
+        self._vis_step = 0
         os.makedirs(log_dir, exist_ok=True)
 
     def _check_finite(self, out: dict, stage: int, bi: int) -> None:
         for key in ("out3", "out4"):
             if not bool(torch.isfinite(out[key]).all()):
                 raise FloatingPointError(f"non-finite {key} at cascade stage {stage}, batch {bi}")
+
+    def _log_projection_images(self, rgb, lidar, intrinsic, out3_np, q_gt, t_gt) -> None:
+        """The writer's init/pred/gt projection overlays of sample 0 (ref
+        evaluation.py:630-657: three add_image calls and one NHWC
+        add_images comparison batch, the same tags), drawn on the host from
+        the model batch's first row."""
+        from i2pnet_tpu_torch.eval.visualize import decalib_extrinsic, render_projection
+
+        rgb_u8 = np.clip(rgb[0], 0, 255).astype(np.uint8)
+        pts = lidar[0]
+        intr = intrinsic[0]
+        # the model's input cloud already sits in the decalibrated frame, so
+        # "init" projects through the identity and pred/gt through the
+        # corrections (the frame convention of tools/render_demo_torch.py)
+        panels = {
+            "init_projected_img": render_projection(
+                rgb_u8, pts, np.eye(3, 4, dtype=np.float32), intr),
+            "pj_projected_img": render_projection(
+                rgb_u8, pts, decalib_extrinsic(out3_np[0, :4], out3_np[0, 4:]), intr),
+            "gt_projected_img": render_projection(
+                rgb_u8, pts, decalib_extrinsic(q_gt[0], t_gt[0]), intr),
+        }
+        for tag, img in panels.items():
+            self.writer.add_image(tag, img, self._vis_step)
+        self.writer.add_images("comparison_img", np.stack(list(panels.values())), self._vis_step)
+        self._vis_step += 1
 
     def cascade(self, mb: dict, bi: int = 0) -> torch.Tensor:
         """out3 (B, 7) of the cascade on one model batch (tensors on the
@@ -132,6 +163,11 @@ class Evaluator:
             axis_errs.append(M.calibration_error_batch(pred_E, gt_E))
             gt_se3 = M.extrinsic_to_se3(gt_raw)
             msee_all.append(M.eval_msee(out3_np, gt_se3, pred_E=pred_raw))
+
+            if self.writer is not None and self.vis_rate and bi % self.vis_rate == 0:
+                self._log_projection_images(
+                    *(mb[k][:1].float().cpu().numpy() for k in ("rgb", "lidar", "intrinsic")),
+                    out3_np, q_gt, t_gt)
 
             for b in range(out3_np.shape[0]):
                 path_info = batch["path_info"][b] if "path_info" in batch else str(b)

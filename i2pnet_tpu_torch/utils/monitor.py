@@ -1,13 +1,11 @@
 """Unified experiment writer (port of ``i2pnet_tpu/utils/monitor.py``).
 
-Fans scalars out to TensorBoard (tensorboardX, if importable)
-and an always-on JSONL metrics file; wandb is attached when a project is
-given and it is importable. Plain-text append logs (log.txt, log_rotate.txt,
-log_trans.txt) and config.json are the JAX package's artifact set. Where
-neither optional package is installed, metrics.jsonl carries every scalar.
-The JAX writer's ``add_image`` / ``add_images`` serve only the evaluator's
-``--vis_rate`` visualisation, which the port does not run yet (ROADMAP
-queue 1, item 5); they come with it.
+Fans scalars and images out to TensorBoard (tensorboardX, if importable)
+and scalars to an always-on JSONL metrics file; wandb is attached when a
+project is given and it is importable. Plain-text append logs (log.txt,
+log_rotate.txt, log_trans.txt) and config.json are the JAX package's
+artifact set. Where neither optional package is installed, metrics.jsonl
+carries every scalar and images go nowhere, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +61,29 @@ class UniWriter:
             self._tb.add_scalar(tag, value, step)
         if self._wandb is not None:
             self._wandb.log({tag: value}, step=step)
+
+    def add_image(self, tag: str, img: np.ndarray, step: int) -> None:
+        """One (H, W, C) image to TensorBoard and wandb (ref
+        monitor/base.py:41-56)."""
+        if self._tb is not None:
+            self._tb.add_image(tag, img, step, dataformats="HWC")
+        if self._wandb is not None:
+            import wandb
+
+            self._wandb.log({tag: wandb.Image(np.asarray(img))}, step=step)
+
+    def add_images(self, tag: str, imgs: np.ndarray, step: int) -> None:
+        """An (N, H, W, C) batch to TensorBoard; wandb gets the reference's
+        H x (W*N) concatenation side by side (ref monitor/base.py:48-56)."""
+        imgs = np.asarray(imgs)
+        if self._tb is not None:
+            self._tb.add_images(tag, imgs, step, dataformats="NHWC")
+        if self._wandb is not None:
+            import wandb
+
+            b, h, w, c = imgs.shape
+            concat = imgs.transpose(1, 2, 0, 3).reshape(h, w * b, c)
+            self._wandb.log({tag: wandb.Image(concat)}, step=step)
 
     def text_log(self, filename: str, line: str) -> None:
         with open(os.path.join(self.log_dir, filename), "a") as f:

@@ -938,3 +938,71 @@ def test_select_kernel_rejects_what_it_cannot_take(dev):
                                                 (250, 250), 4, 1.0)
     with pytest.raises(ValueError):  # a CPU tensor
         select_cuda.selection_multiplicity_cuda(torch.zeros(1, 8, 8, 3), 4, 4, (2, 2), (3, 3), 4, 1.0)
+
+
+def _encoder_calls(cfg, H, W):
+    """(H, W, cin, cout, stride) of each encoder-block call of a forward."""
+    calls = []
+    for cin, couts, strides in cfg.rgb_encoder_channels:
+        for cout, stride in zip(couts, strides):
+            calls.append((H, W, cin, cout, stride))
+            cin, H, W = cout, -(-H // stride), -(-W // stride)
+    return calls
+
+
+def _b1_cases():
+    """The kernels' calls of one B=1 forward at the bench shapes (the demo
+    renderers' frames): FPS at the free path's four levels, the encoder
+    block's 15 calls of each family, cv1 with N=256 and K=480, and the
+    window select at the proj path's levels."""
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+
+    cases = [("fps", (8192, 2048)), ("fps", (2048, 1024)), ("fps", (1024, 256)), ("fps", (256, 64))]
+    cases += [("block", c) for c in _encoder_calls(I2PNetConfig(), 384, 1280)]
+    cases += [("block", c) for c in _encoder_calls(I2PNetProjConfig(), 160, 512)]
+    cases += [("cv1", (1, 256, 480, 128, 128, 64, 64, 64, 128))]
+    cases += [("select", level) for level in SELECT_LEVELS]
+    return cases
+
+
+@pytest.mark.parametrize("kind,case", _b1_cases(),
+                         ids=[f"{k}-{'x'.join(map(str, c[:2] if k == 'select' else c))}"
+                              for k, c in _b1_cases()])
+def test_kernels_at_batch_one(dev, kind, case):
+    """B=1, as the demo renderers run the model a frame at a time: each
+    kernel against its plain version at the bars of its own tests (FPS and
+    select exactly, the block within 0.01 * max(|ref|, 1), cv1 within 5e-3),
+    one launch a call."""
+    rng = np.random.default_rng(len(str(case)))
+    mod = {"fps": fps_cuda, "block": conv_cuda, "cv1": cv_cuda, "select": select_cuda}[kind]
+    before = mod.launches
+    if kind == "fps":
+        N, npoint = case
+        xyz = torch.from_numpy(rng.uniform(-10, 10, size=(1, N, 3)).astype(np.float32)).to(dev)
+        got, ref = fps_cuda.fps_cuda(xyz, npoint), fps_cuda.fps_plain(xyz, npoint)
+        assert torch.equal(got, ref)
+    elif kind == "block":
+        H, W, cin, cout, stride = case
+        xb = torch.from_numpy(rng.normal(size=(1, H, W, cin)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        wb = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) / (3 * cin**0.5)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        scale, shift = (torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+                        for _ in range(2))
+        got = conv_cuda.conv_block_cuda(xb, wb, scale, shift, stride).float()
+        ref = conv_cuda.conv_block_plain(xb, wb, scale, shift, stride).float()
+        assert got.shape == ref.shape == (1, -(-H // stride), -(-W // stride), cout)
+        assert float((got - ref).abs().max()) <= 0.01 * max(float(ref.abs().max()), 1.0)
+    elif kind == "cv1":
+        ops = _cv1_operands(dev, *case)
+        got, ref = cv_cuda.cv1_cuda(*ops), cv_cuda.cv1_plain(*ops)
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= 5e-3
+    else:
+        grid, out_hw, qstride, kernel, K, distance = case
+        xyz = torch.from_numpy(_range_grid(rng, 1, *grid)).to(dev)
+        got = select_cuda.selection_multiplicity_cuda(xyz, *out_hw, qstride, kernel, K, distance)
+        ref = select_cuda.selection_multiplicity_plain(xyz, *out_hw, qstride, kernel, K, distance)
+        assert torch.equal(got, ref) and bool((got.sum(-1) == K).all())
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1

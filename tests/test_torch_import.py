@@ -1,7 +1,8 @@
 """The port imports torch and never jax, nor any module of the JAX package
 (``i2pnet_tpu``), not even one that imports no jax; nor do its scripts
-(``chip_smoke.py``, ``evaluate_torch.py``, ``train_torch.py`` and
-``tools/synthetic_convergence_torch.py``), with every import each makes
+(``chip_smoke.py``, ``evaluate_torch.py``, ``train_torch.py``,
+``tools/synthetic_convergence_torch.py`` and the reference-checkpoint and
+demo tools), with every import each makes
 anywhere in the file. Importing all of it loads neither h5py nor PIL (the
 loaders import them when a sample is read) nor pandas.
 
@@ -54,9 +55,16 @@ NEW = [
     "i2pnet_tpu_torch.data.preprocess",
     "i2pnet_tpu_torch.data.kitti_odometry_cmr",
     "i2pnet_tpu_torch.data.nuscenes",
+    # what a user runs around the model: the visual outputs, the real-rig
+    # frames and the offline dataset builders
+    "i2pnet_tpu_torch.eval.visualize",
+    "i2pnet_tpu_torch.data.realloc",
+    "i2pnet_tpu_torch.data.nuscenes_lite",
+    "i2pnet_tpu_torch.data.preprocess_nuscenes",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
-           "tools/synthetic_convergence_torch.py"]
+           "tools/synthetic_convergence_torch.py", "tools/reference_ckpt_to_torch.py",
+           "tools/render_demo_torch.py", "tools/render_real_demo_torch.py"]
 
 PROBE = f"NEW = {NEW!r}\nSCRIPTS = {SCRIPTS!r}\n" + """
 import ast, importlib, importlib.util, os, pkgutil, sys
@@ -95,5 +103,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (52 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 52
+    # the walk found the whole package (56 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 56

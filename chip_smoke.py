@@ -216,7 +216,30 @@ builders. Phases, each raising on failure:
    ``KittiOdometryCMRDataset``; a nuScenes v1.0 JSON tree through
    ``NuScenesLite`` and ``generate_split``, read by ``NuScenesCMRDataset``;
    one free forward on the card from each, every kernel call against its
-   plain version; the builders' seconds.
+   plain version; the builders' seconds;
+30. data parallelism: two ranks on the one card (``torch.multiprocessing``
+   with spawn, gloo, CUDA tensors; time-sliced, so its times are no
+   scaling figure, and NCCL across cards is not exercised), B=4 a rank of
+   the global 8: the shipped proj and free steps in bf16 (dropout off;
+   launches a rank as the one-process step's, every kernel call against
+   its plain version, the loss within 2e-3 of the one-process step's, the
+   gradients no further from the f32 step than its, the ranks bit-identical,
+   a second run bit-identical) and in f32 (loss 1e-4, running statistics
+   1e-5, the gradients' relative L2 gap at ``F32_GRAD_BARS``); every
+   reading printed beside its controls (the same step with its sums in
+   another order: one process on the rows reversed, in f32 one process at
+   B=4 twice and the ranks on their rows reversed) and beside two faults
+   planted in the statistics' all-reduce (``planted``), each of which must
+   break a bar (the block comment at ``dp_phase``); the ``Trainer`` at W =
+   2 (2 steps, 1 validation batch; rank 0's files, the one-process run's
+   names); the ``Evaluator``'s fan-out of both 2-stage cascades over 27
+   large-range and 19 free pairs (ragged last batches: free out3
+   bit-identical, proj within 1e-4 in f32 and no further from the f32
+   cascade than one process in bf16; prediction.txt's sections); then
+   ``train_torch.py`` and ``evaluate_torch.py --dp`` (on its checkpoint,
+   against ``evaluate_torch.py`` in a plain process) under
+   ``torch.distributed.run --nproc_per_node 1`` (NCCL); the DP step's ms
+   and the fan-out's pairs/s beside one process's.
 
 The script assumes no h5py or PIL: phases 24-29 stand in for the
 loaders' map read (``read_local_map``), nuScenes' frame decode
@@ -233,7 +256,8 @@ Prints the kernels' JSON line (times, bounds, launches on the path each
 row was timed on, and the launches on every path), then as its last line
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler breakdowns of the free forward, the
-train step, the proj forward and the proj train step). It never runs on
+train step, the proj forward and the proj train step; ``--phase 30`` runs
+the build and phase 30 alone, and prints neither JSON line). It never runs on
 the CPU: without a CUDA device it exits non-zero.
 """
 
@@ -3091,24 +3115,693 @@ def builders_phase(ctx, work: str) -> None:
           f"on its first batch {shapes}: finite, every kernel call held against its plain version")
 
 
-def main() -> int:
-    import torch
+# phase 30: data parallelism. The card's machine holds one H100, so two
+# ranks share it under gloo (torch.multiprocessing, spawn), time-sliced: the
+# phase checks the DP paths against the single process, and its times are
+# no scaling figure; NCCL across cards is not exercised (train_torch.py
+# runs under torchrun at W = 1 with NCCL). Each rank writes its launches,
+# its kernel-call errors and its tensors to the phase's work dir; a rank
+# that raises exits non-zero and the phase raises.
+DP_RANKS = 2
+DP_EVAL_FRAMES = {7: 14, 8: 13}  # 27 pairs: the last batch 3 rows, 2 + 1 padded on two ranks
+DP_FREE_PAIRS = 2 * BATCH + 3
+DP_TRAIN_FRAMES = {0: 16, 9: 8}  # phase 18's layout: 2 steps and 1 validation batch an epoch
+DP_TIMED_STEPS = 3
+# the faults planted in the ranks' statistics all-reduce (``planted``)
+PLANTED = ("nondiff", "local")
+# the gradients' relative L2 gap from the one-process step over the leaves,
+# (median, largest): f32 from the f32 step, bf16 from the bf16 step; and
+# the bf16 running statistics' gap, relative to the step's update. Set at
+# a few times the largest control reading on the card (the block comment
+# at dp_phase)
+F32_GRAD_BARS = (5e-3, 0.1)
+BF16_GRAD_BARS = (0.25, 2.0)
+BF16_STAT_BAR = 1e-2
+DP_FREE_EVAL_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * 3,
+                             encoder_block=15 * EVAL_STAGES * 3, cv1=EVAL_STAGES * 3)
+DP_PROJ_EVAL_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * 4,
+                             select=5 * EVAL_STAGES * 4)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke test runs only on the card",
-              file=sys.stderr)
-        return 1
+
+def absorbed_biases(model) -> set:
+    """The biases that a batch-statistics norm follows (an encoder conv's, a
+    normalised Dense's): their true gradient is 0, and a step holds
+    cancellation residue there, as tests/test_dp_fused.py excludes them."""
+    from i2pnet_tpu_torch.nn.layers import BatchNorm, BatchStatsNorm
+
+    out = set()
+    for name, mod in model.named_modules():
+        children = dict(mod.named_children())
+        for cname, child in children.items():
+            if not isinstance(child, (BatchNorm, BatchStatsNorm)):
+                continue
+            j = cname.rpartition("_")[2]
+            for lead in ("Conv", "Dense"):
+                if f"{lead}_{j}" in children:
+                    out.add(f"{name}.{lead}_{j}.bias".lstrip("."))
+    return out
+
+
+def dp_setup(family: str, dtype: str = "bfloat16", seed: int = SEED):
+    """A fresh seeded shipped-config model of the family in ``dtype``,
+    dropout off, its train state and plain step: (model, cfg, state,
+    step)."""
+    import torch
 
     from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
     from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
-    from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
-                                      pool_route_cuda, select_cuda)
     from i2pnet_tpu_torch.train import create_train_state, make_train_step, make_train_step_proj
 
+    Cfg, Model, make = ((I2PNetProjConfig, I2PNetProj, make_train_step_proj) if family == "proj"
+                        else (I2PNetConfig, I2PNet, make_train_step))
+    cfg = dataclasses.replace(Cfg(), compute_dtype=dtype, head_dropout_rate=0.0)
+    model = init_random_(Model(cfg), torch.Generator().manual_seed(seed))
+    state = create_train_state(model, steps_per_epoch=100)
+    return model, cfg, state, make(model, cfg)
+
+
+def dp_batch(family: str, dev) -> dict:
+    """Phase 5's (free) or phase 11's (proj) batch of 8: identity ground
+    truth."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig
+
+    if family == "proj":
+        rgb, lidar, raw, k = make_proj_inputs(dev)
+        batch = {"rgb": rgb, "lidar": lidar, "raw_xyz": raw, "intrinsic": k}
+    else:
+        rgb, lidar, k = make_inputs(I2PNetConfig(), dev)
+        batch = {"rgb": rgb, "lidar": lidar, "intrinsic": k}
+    batch["decalib_q_gt"] = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(BATCH, 1)
+    batch["decalib_t_gt"] = torch.zeros(BATCH, 3, device=dev)
+    return batch
+
+
+def step_tensors(model, metrics, params: bool = True) -> dict:
+    """A step's metrics, gradients, parameters (where asked) and
+    statistics, on the CPU."""
+    out = {"metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+           "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+           "buffers": {k: b.detach().cpu() for k, b in model.named_buffers()}}
+    if params:
+        out["params"] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    return out
+
+
+def one_step(family: str, dtype: str, batch: dict, mesh=None, fault=None) -> dict:
+    """The seeded model's first step on batch (without params), in one
+    process, or under mesh as a rank's DP step, with a fault planted where
+    asked."""
+    import torch
+
+    from i2pnet_tpu_torch.parallel import replicate_, shard_train_step
+
+    model, _, state, step = dp_setup(family, dtype)
+    if mesh is not None:
+        replicate_(model, mesh)
+        step = shard_train_step(step, mesh)
+    with planted(fault) if fault else contextlib.nullcontext():
+        out = step_tensors(model, step(state, batch), params=False)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """A fault planted in the statistics' all-reduce (``parallel/mesh.py``
+    ``all_reduce_sum``), to read how far each bar of phase 30 sits from a
+    defect: 'nondiff' keeps the forward sum and drops its transpose (what a
+    plain ``dist.all_reduce`` gives: no rank's rows get the gradient of the
+    other's loss through the statistics), 'local' reduces nothing (each
+    rank normalises by its own rows, as a plain DistributedDataParallel
+    wrap would)."""
+    import torch
+    import torch.distributed as dist
+
+    from i2pnet_tpu_torch.parallel import mesh as mesh_module
+
+    class ForwardOnly(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            y = x.contiguous().clone()
+            dist.all_reduce(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    real = mesh_module.all_reduce_sum
+    mesh_module.all_reduce_sum = {"nondiff": ForwardOnly.apply, "local": torch.clone}[fault]
+    try:
+        yield
+    finally:
+        mesh_module.all_reduce_sum = real
+
+
+def timed_steps(step, state, batch, gen=None) -> float:
+    """ms a step: the median of DP_TIMED_STEPS steps, each synchronised."""
+    import torch
+
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_eval_sets(work: str):
+    """The fan-out's data: {family: (dataset, the stages' seeds)}: the proj
+    family on a large-range test tree of 27 pairs, the free family on 19
+    in-memory pairs; both end in a ragged batch of 3."""
+    from i2pnet_tpu_torch.config import I2PNetConfig
+    from i2pnet_tpu_torch.data import KittiLargeRangeDataset
+
+    return {"proj": KittiLargeRangeDataset(os.path.join(work, "eval_data"), mode="test", seed=0),
+            "free": FreeEvalDataset(DP_FREE_PAIRS, I2PNetConfig().lidar_in_points)}
+
+
+def dp_stages(family: str, dtype: str = "bfloat16"):
+    """The 2-stage cascade of phases 16-17: shipped models in ``dtype``
+    drawn from SEED + i, in eval mode."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
+
+    Cfg, Model = (I2PNetProjConfig, I2PNetProj) if family == "proj" else (I2PNetConfig, I2PNet)
+    cfg = dataclasses.replace(Cfg(), compute_dtype=dtype)
+    return [init_random_(Model(cfg), torch.Generator().manual_seed(SEED + i)).eval()
+            for i in range(EVAL_STAGES)], cfg
+
+
+def dp_evaluate(family, ds, log_dir, mesh=None, kernels=(), dtype="bfloat16"):
+    """The cascade's Evaluator over ds: (summary, the out3 it scores, the
+    kernel captures, the launches) with the calls captured, then, in bf16,
+    the pairs/s of a second pass with no capture on (the loading included)
+    and its mean_fps."""
+    import torch
+
+    from i2pnet_tpu_torch import metrics as M
+    from i2pnet_tpu_torch.data import BatchLoader
+    from i2pnet_tpu_torch.eval import Evaluator
+
+    models, cfg = dp_stages(family, dtype)
+    ev = Evaluator(models, cfg, proj=family == "proj", log_dir=log_dir, mesh=mesh)
+    scored, real = [], M.get_extrinsic
+
+    def recording(out3, *a, **k):
+        scored.append(out3.copy())
+        return real(out3, *a, **k)
+
+    M.get_extrinsic = recording
+    try:
+        with Captures(kernels) as caps:
+            reset_counts()
+            summary = ev.validate(BatchLoader(ds, BATCH, shuffle=False, drop_last=False))
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        M.get_extrinsic = real
+    if dtype != "bfloat16":
+        return summary, scored, caps, launches, None, None
+    t0 = time.perf_counter()
+    again = ev.validate(BatchLoader(ds, BATCH, shuffle=False, drop_last=False),
+                        save_metrics=False)
+    rate = len(ds) / (time.perf_counter() - t0)
+    return summary, scored, caps, launches, rate, (again or {}).get("mean_fps")
+
+
+def dp_rank(rank: int, work: str) -> None:
+    """One rank of phase 30 (started by torch.multiprocessing with spawn):
+    the proj and free DP steps, the Trainer at W = 2 and the evaluator's
+    fan-out, each with its launches counted and every kernel call held
+    against its plain version; writes rank{rank}.pt and rank{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(DP_RANKS))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    ct = conv_train_cuda
+    from i2pnet_tpu_torch.parallel import (host_batch_slice, make_mesh,
+                                           maybe_initialize_distributed, replicate_,
+                                           shard_train_step)
+
+    # two ranks on the one card: gloo, asked for (NCCL refuses them)
+    check(maybe_initialize_distributed(backend="gloo", init_method=f"file://{work}/store"),
+          "phase 30: no process group")
+    mesh = make_mesh()
+    eval_kernels, train_kernels, _, _, select = kernel_table()
+    report = {"rank": rank, "device": str(mesh.device), "backend": dist.get_backend(),
+              "launches": {}, "errors": {}, "ms": {}, "pairs_per_s": {}, "mean_fps": {}}
+    tensors = {}
+    try:
+        rows = host_batch_slice(BATCH)
+        for family in ("proj", "free"):
+            batch = {k: v[rows] for k, v in dp_batch(family, mesh.device).items()}
+            runs = []
+            for _ in range(2):  # a second run from the same seeds repeats the first
+                model, _, state, step = dp_setup(family)
+                replicate_(model, mesh)
+                step = shard_train_step(step, mesh)
+                kernels = train_kernels + ([eval_kernels[0]] if family == "free" else [])
+                with Captures(kernels) as caps:
+                    reset_counts()
+                    metrics = step(state, batch)
+                    torch.cuda.synchronize()
+                    launches = read_counts()
+                runs.append(step_tensors(model, metrics))
+            report["launches"][f"{family}_train"] = launches
+            with torch.no_grad():
+                errs = {k["name"]: train_kernel_error(
+                    k["name"], getattr(k["module"], k["fn"]), getattr(k["module"], k["plain"]),
+                    caps[k["name"]].calls) for k in train_kernels}
+                if family == "free":
+                    errs["fps"] = eval_kernel_error("fps", eval_kernels[0]["module"].fps_plain,
+                                                    caps["fps"].calls)
+            report["errors"][f"{family}_train"] = errs
+            del caps
+            same = all(torch.equal(a, runs[1][part][k]) for part in runs[0]
+                       for k, a in runs[0][part].items())
+            report[f"{family}_repeat_identical"] = same
+            tensors[f"{family}_bfloat16"] = runs[0]
+            report["ms"][f"{family}_step"] = timed_steps(step, state, batch)
+            del model, state, step, runs
+            torch.cuda.empty_cache()
+            # the same step in f32 (the native chain: no train kernel)
+            model, _, state, step = dp_setup(family, "float32")
+            replicate_(model, mesh)
+            metrics = shard_train_step(step, mesh)(state, batch)
+            tensors[f"{family}_float32"] = step_tensors(model, metrics)
+            del model, state, step
+            torch.cuda.empty_cache()
+            # the control (f32, each rank's rows reversed: the DP step's own
+            # rounding) and the planted faults in both dtypes; rank 0 keeps them
+            runs = {"float32_flipped": ("float32", {k: v.flip(0) for k, v in batch.items()},
+                                        None)}
+            runs.update({f"{dtype}_{fault}": (dtype, batch, fault) for dtype in
+                         ("float32", "bfloat16") for fault in PLANTED})
+            for name, (dtype, rows_in, fault) in runs.items():
+                out = one_step(family, dtype, rows_in, mesh, fault)
+                if rank == 0:
+                    tensors[f"{family}_{name}"] = out
+            del batch, runs
+
+        # the Trainer at W = 2 on phase 18's layout: 2 steps, 1 validation batch
+        report["launches"]["trainer"], report["trainer_files"] = dp_trainer(
+            os.path.join(work, "trainer_dp"), work)
+
+        # the evaluator's fan-out
+        sets = dp_eval_sets(work)
+        for family, kernels in (("proj", [eval_kernels[1], select]), ("free", eval_kernels)):
+            summary, scored, caps, launches, rate, mean_fps = dp_evaluate(
+                family, sets[family], os.path.join(work, f"eval_dp_{family}"), mesh, kernels)
+            report["launches"][f"{family}_fan_out"] = launches
+            with torch.no_grad():
+                report["errors"][f"{family}_fan_out"] = {
+                    k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                                 caps[k["name"]].calls) for k in kernels}
+            del caps
+            report["pairs_per_s"][f"{family}_fan_out"] = rate
+            report["mean_fps"][f"{family}_fan_out"] = mean_fps
+            tensors[f"{family}_fan_out"] = {"summary": summary, "scored": scored}
+        summary, scored = dp_evaluate("proj", sets["proj"], os.path.join(work, "eval_dp_f32"),
+                                      mesh, dtype="float32")[:2]
+        tensors["proj_fan_out_f32"] = {"summary": summary, "scored": scored}
+    finally:
+        dist.destroy_process_group()
+    torch.save(tensors, os.path.join(work, f"rank{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def dp_trainer(log_dir: str, work: str):
+    """The shipped proj config's Trainer (bf16, B=8, one epoch) on the
+    phase's training tree: its launches and the files under log_dir."""
+    import torch
+
+    import train_torch
+    from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.train.trainer import Trainer
+
+    args = train_torch.parse_args(["--dataset", "kd_corr_nolidar", "--network", "i2pnet_proj",
+                                   "--compute_dtype", "bfloat16",
+                                   "--root_path", os.path.join(work, "train_data")])
+    model, cfg, _ = cli.build(args)
+    train_ds, valid_ds = cli.build_datasets(args, cfg)
+    trainer = Trainer(model, cfg, train_ds, valid_ds, log_dir=log_dir, batch_size=BATCH,
+                      epochs=1, seed=SEED, proj=True, save_rate=1)
+    reset_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trainer.writer.close()
+    files = sorted(os.path.relpath(os.path.join(d, f), log_dir).split(".out.tfevents")[0]
+                   for d, _, names in os.walk(log_dir) for f in names) \
+        if os.path.isdir(log_dir) else []
+    return launches, files
+
+
+def dp_phase(ctx, work: str, path_launches: dict) -> None:
+    """Phase 30 (see the block comment above): the single-process
+    references, the two ranks, the comparisons, train_torch.py under
+    torchrun at W = 1 with NCCL, and the times."""
+    import re
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from i2pnet_tpu_torch.eval import SECTION
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    write_large_range_tree(os.path.join(work, "eval_data"), DP_EVAL_FRAMES)
+    write_large_range_tree(os.path.join(work, "train_data"), DP_TRAIN_FRAMES, seed=SEED + 1)
+
+    # the single process: each step, its time, the trainer's files, the evaluator
+    ref, ms = {}, {}
+    for family in ("proj", "free"):
+        batch = dp_batch(family, ctx.dev)
+        for dtype in ("bfloat16", "float32"):
+            model, _, state, step = dp_setup(family, dtype)
+            ref[f"{family}_{dtype}_start"] = {k: b.detach().cpu().clone()
+                                              for k, b in model.named_buffers()}
+            ref[f"{family}_{dtype}"] = step_tensors(model, step(state, batch))
+            ref[family] = absorbed_biases(model)
+            if dtype == "bfloat16":
+                ms[family] = timed_steps(step, state, batch)
+            del model, state, step
+            torch.cuda.empty_cache()
+        # the controls: each step on the batch's rows reversed (the same real
+        # numbers, its sums in another order), and in f32 one process at a
+        # rank's B=4, twice (rows 0-3, then reversed)
+        flip = {k: v.flip(0) for k, v in batch.items()}
+        four = {k: v[:BATCH // DP_RANKS] for k, v in batch.items()}
+        for name, dtype, rows in (("bfloat16_reversed", "bfloat16", flip),
+                                  ("float32_reversed", "float32", flip),
+                                  ("float32_b4", "float32", four),
+                                  ("float32_b4_reversed", "float32",
+                                   {k: v.flip(0) for k, v in four.items()})):
+            ref[f"{family}_{name}"] = one_step(family, dtype, rows)
+        del batch, flip, four
+    _, single_files = dp_trainer(os.path.join(work, "trainer_single"), work)
+    sets = dp_eval_sets(work)
+    single_eval, rates, fps = {}, {}, {}
+    for family, kernels in (("proj", [ctx.block, ctx.select]),
+                            ("free", [ctx.fps, ctx.block, ctx.cv1])):
+        summary, scored, caps, _, rates[family], fps[family] = dp_evaluate(
+            family, sets[family], os.path.join(work, f"eval_single_{family}"), kernels=kernels)
+        del caps
+        single_eval[family] = (summary, scored)
+    single_eval["proj_f32"] = dp_evaluate("proj", sets["proj"], os.path.join(
+        work, "eval_single_f32"), dtype="float32")[:2]
+    torch.cuda.empty_cache()
+    print(f"phase 30: the single-process references in {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(work,), nprocs=DP_RANKS, start_method="spawn", join=True)
+    print(f"phase 30: {DP_RANKS} ranks (spawn, gloo, one card) in {time.perf_counter() - t0:.1f} s")
+    reports = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    check(all(rep["backend"] == "gloo" and rep["device"] == "cuda:0" for rep in reports),
+          f"phase 30: ranks on {[(rep['backend'], rep['device']) for rep in reports]}")
+
+    # launches per rank: the single-process path's on the rank's rows
+    want = {"proj_train": PROJ_TRAIN_LAUNCHES, "free_train": TRAIN_LAUNCHES,
+            "trainer": run_launches(PROJ_TRAIN_LAUNCHES, PROJ_VAL_LAUNCHES, 2, 1),
+            "proj_fan_out": DP_PROJ_EVAL_LAUNCHES, "free_fan_out": DP_FREE_EVAL_LAUNCHES}
+    for rep in reports:
+        for path, counts in want.items():
+            check(rep["launches"][path] == counts,
+                  f"phase 30 rank {rep['rank']} {path} launches {compact(rep['launches'][path])}")
+    for path in want:
+        path_launches[f"dp_{path}_per_rank"] = reports[0]["launches"][path]
+        print(f"phase 30 launches a rank, {path}: {compact(reports[0]['launches'][path])}")
+
+    # the DP steps against the single process, each reading beside its
+    # controls (the same step with its sums in another order) and beside the
+    # faults planted in the statistics' all-reduce (``planted``); every bar
+    # must hold for the DP step, and every fault must break one of its
+    # dtype's bars. Readings: the loss's gap relative to |loss| + 1; the
+    # running statistics' largest gap over the buffers, in relative L2 of the
+    # step's update (the statistics after it less those before); the
+    # gradients' relative L2 gap over the leaves, median and largest (the
+    # BN-absorbed biases excluded, as tests/test_dp_fused.py excludes them).
+    # f32: the loss within 1e-4 and the statistics within rtol 1e-5 / atol
+    # 1e-6 (JAX's DP bars, tests/test_dp_fused.py); the gradients at
+    # F32_GRAD_BARS, set from the controls: JAX's 1e-3 of a leaf's max, met
+    # at the CPU tests' sizes, does not hold at these, where a reordered sum
+    # moves an encoder leaf by up to ~5% of its largest entry. bf16: the loss
+    # within JAX's full-step bar (2e-3, tests/test_dp_fused.py:203), the
+    # statistics and the gradients against the one-process bf16 step at
+    # BF16_STAT_BAR and BF16_GRAD_BARS, set from the controls: each rank
+    # rounds its own partial sums, and a bf16 mean may round the other way.
+    # Readings on NVIDIA H100 80GB HBM3, 700 W (proj, free): f32 gradients
+    # 1.3e-3 / 3.8e-2 and 2.4e-3 / 2.3e-2, the largest control 2.1e-3 /
+    # 2.5e-2, 'nondiff' 0.54 and 0.62 in median; bf16 gradients 0.15 / 1.1
+    # and 0.14 / 0.92, controls up to 0.13 / 1.0, the faults 0.38-1.1 in
+    # median; bf16 statistics 4.4e-3 and 5.0e-3, controls up to 2.0e-3,
+    # 'local' 0.12 and 0.058.
+    def leaf_gaps(got, want, skip):
+        return {k: float((got[k] - w).norm()) / (float(w.norm()) + 1e-12)
+                for k, w in want.items() if k not in skip}
+
+    def loss_gap(got, want):
+        a, b = float(got["metrics"]["loss"]), float(want["metrics"]["loss"])
+        return abs(a - b) / (abs(b) + 1)
+
+    def stat_gap(got, want, start):
+        return max(float((got[k] - w).norm()) / float((w - start[k]).norm())
+                   for k, w in want.items() if float((w - start[k]).norm()) > 0)
+
+    def grad_gap(got, want, skip):
+        gaps = leaf_gaps(got["grads"], want["grads"], skip)
+        return statistics.median(gaps.values()), max(gaps.values())
+
+    def fmt(pair):
+        return f"{pair[0]:.3e} / {pair[1]:.3e}"
+
+    for family in ("proj", "free"):
+        skip, r0 = ref[family], ranks[0]
+        for dtype, loss_bar, grad_bars in (("float32", 1e-4, F32_GRAD_BARS),
+                                           ("bfloat16", 2e-3, BF16_GRAD_BARS)):
+            single, dp = ref[f"{family}_{dtype}"], r0[f"{family}_{dtype}"]
+            start = ref[f"{family}_{dtype}_start"]
+            rev = ref[f"{family}_{dtype}_reversed"]
+            controls = {"one process, rows reversed": (single, rev)}
+            if dtype == "float32":
+                controls["one process at B=4, rows reversed"] = (
+                    ref[f"{family}_float32_b4"], ref[f"{family}_float32_b4_reversed"])
+                controls[f"{DP_RANKS} ranks, each rank's rows reversed"] = (
+                    dp, r0[f"{family}_float32_flipped"])
+
+            def bars_broken(got):
+                med, top = grad_gap(got, single, skip)
+                out = []
+                if loss_gap(got, single) > loss_bar:
+                    out.append("loss")
+                if dtype == "float32":
+                    if not all(torch.allclose(got["buffers"][k], b, rtol=1e-5, atol=1e-6)
+                               for k, b in single["buffers"].items()):
+                        out.append("statistics")
+                elif stat_gap(got["buffers"], single["buffers"], start) > BF16_STAT_BAR:
+                    out.append("statistics")
+                if med > grad_bars[0] or top > grad_bars[1]:
+                    out.append("gradients")
+                return out
+
+            label = f"phase 30 {family} {dtype}"
+            broken = bars_broken(dp)
+            gaps = leaf_gaps(dp["grads"], single["grads"], skip)
+            print(f"{label} step on {DP_RANKS} ranks (B={BATCH // DP_RANKS} a rank) against one "
+                  f"process: loss {float(dp['metrics']['loss']):.6f} / "
+                  f"{float(single['metrics']['loss']):.6f}, gap {loss_gap(dp, single):.3e} (bar "
+                  f"{loss_bar:g}); statistics {stat_gap(dp['buffers'], single['buffers'], start):.3e}"
+                  f"{'' if dtype == 'float32' else f' (bar {BF16_STAT_BAR:g})'}; gradients over "
+                  f"{len(leaf_gaps(dp['grads'], single['grads'], skip))} leaves (the {len(skip)} "
+                  f"absorbed biases excluded), median / largest {fmt(grad_gap(dp, single, skip))} "
+                  f"(bars {fmt(grad_bars)}; the largest at {max(gaps, key=gaps.get)})")
+            for name, (a, b) in controls.items():
+                print(f"{label} control, {name}: loss {loss_gap(b, a):.3e}; statistics "
+                      f"{stat_gap(b['buffers'], a['buffers'], start):.3e}; gradients "
+                      f"{fmt(grad_gap(b, a, skip))}")
+            for fault in PLANTED:
+                got = r0[f"{family}_{dtype}_{fault}"]
+                hit = bars_broken(got)
+                print(f"{label} planted '{fault}': loss {loss_gap(got, single):.3e}; statistics "
+                      f"{stat_gap(got['buffers'], single['buffers'], start):.3e}; gradients "
+                      f"{fmt(grad_gap(got, single, skip))}; breaks {hit}")
+                check(hit, f"{label}: the planted '{fault}' fault breaks no bar")
+            check(not broken, f"{label}: the DP step breaks the bars of {broken}")
+        for part in ("params", "buffers", "grads"):
+            for dtype in ("bfloat16", "float32"):
+                a, b = ranks[0][f"{family}_{dtype}"][part], ranks[1][f"{family}_{dtype}"][part]
+                check(all(torch.equal(v, b[k]) for k, v in a.items()),
+                      f"phase 30 {family} {dtype}: the ranks' {part} differ after the step")
+        check(all(rep[f"{family}_repeat_identical"] for rep in reports),
+              f"phase 30 {family}: a second 2-rank run differs from the first")
+        errs = {k: max(rep["errors"][f"{family}_train"][k] for rep in reports)
+                for k in reports[0]["errors"][f"{family}_train"]}
+        print(f"phase 30 {family}: the ranks' parameters, statistics and gradients "
+              f"bit-identical (bf16 and f32); a second bf16 run bit-identical; kernel calls "
+              f"against their plain versions, worst errors {errs}")
+
+    # the Trainer at W = 2: rank 0's files alone, the single process's set
+    check(reports[0]["trainer_files"] == reports[1]["trainer_files"] == single_files,
+          f"phase 30 Trainer: files {reports[0]['trainer_files']} against {single_files}")
+    print(f"phase 30: the Trainer on {DP_RANKS} ranks, 2 steps and 1 validation batch: "
+          f"{len(single_files)} files, the single process's names, written by rank 0")
+
+    # the fan-out against the single-process evaluator
+    for family in ("proj", "free"):
+        lead, other = ranks[0][f"{family}_fan_out"], ranks[1][f"{family}_fan_out"]
+        summary, scored = single_eval[family]
+        check(other["summary"] is None and not other["scored"],
+              f"phase 30 {family} fan-out: rank 1 scored")
+        check([a.shape for a in lead["scored"]] == [a.shape for a in scored]
+              and lead["summary"]["count"] == summary["count"] == len(sets[family]),
+              f"phase 30 {family} fan-out: {[a.shape for a in lead['scored']]}")
+        gap = max(float(abs(a - b).max()) for a, b in zip(lead["scored"], scored))
+        # free: nothing batch-wide at eval, so bit for bit. proj: the
+        # statistics sum in another order; in f32 within the CPU test's
+        # 1e-4, and in bf16, where a bf16 mean may round the other way, no
+        # further from the f32 cascade than the one-process bf16 cascade
+        if family == "free":
+            check(gap == 0.0, f"phase 30 free fan-out: out3 {gap} from the single process")
+        else:
+            f32 = np.concatenate(single_eval["proj_f32"][1])
+            gap32 = float(abs(np.concatenate(ranks[0]["proj_fan_out_f32"]["scored"]) - f32).max())
+            check(gap32 <= 1e-4, f"phase 30 proj f32 fan-out: out3 {gap32} from the single process")
+            one = float(abs(np.concatenate(scored) - f32).max())
+            dp = float(abs(np.concatenate(lead["scored"]) - f32).max())
+            check(dp <= 1.5 * one + 1e-4, f"phase 30 proj bf16 fan-out: out3 {dp} from the f32 "
+                                          f"cascade, one process {one}")
+            print(f"phase 30 proj fan-out: in f32 out3 within {gap32:.3e} of the single process; "
+                  f"in bf16 within {gap:.3e}, and {dp:.3e} from the f32 cascade against the "
+                  f"single process's {one:.3e}")
+        preds = []
+        for d in (f"eval_dp_{family}", f"eval_single_{family}"):
+            with open(os.path.join(work, d, "prediction.txt")) as f:
+                preds.append([line for line in f if line.startswith(SECTION)])
+        check(preds[0] == preds[1] and len(preds[0]) == len(sets[family]),
+              f"phase 30 {family} fan-out: prediction.txt sections")
+        # rank 0 alone wrote: one metrics npz, a log line a pass (two passes)
+        for d in (f"eval_dp_{family}", f"eval_single_{family}"):
+            names = os.listdir(os.path.join(work, d))
+            with open(os.path.join(work, d, "log_test.txt")) as f:
+                lines = f.read().splitlines()
+            check(len(lines) == 2 and sum(n.startswith("metrics_") for n in names) == 1,
+                  f"phase 30 {family}: {d} holds {sorted(names)}, {len(lines)} log lines")
+        print(f"phase 30 {family} fan-out on {DP_RANKS} ranks: out3 of {len(sets[family])} pairs "
+              f"(a ragged last batch) {'bit-identical to' if gap == 0 else f'within {gap:.3e} of'}"
+              f" the single-process Evaluator; prediction.txt's {len(preds[0])} sections in its "
+              f"order")
+
+    # train_torch.py under torchrun at W = 1: the CLI's init (NCCL) and rank 0's writes
+    log_dir = os.path.join(work, "torchrun_run")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         os.path.join(here, "train_torch.py"), "--dataset", "kd_corr_nolidar", "--network",
+         "i2pnet_proj", "--compute_dtype", "bfloat16", "--batch_size", str(BATCH),
+         "--root_path", os.path.join(work, "train_data"), "--log_dir", log_dir,
+         "--max_epoch", "1"],
+        capture_output=True, text=True, timeout=600, cwd=here,
+        env=dict(os.environ, NCCL_DEBUG="INFO"))
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"phase 30 torchrun train_torch.py: exit {proc.returncode}\n"
+                                f"{out[-4000:]}")
+    check(re.search(r"NCCL INFO", out) is not None, "phase 30 torchrun: no NCCL communicator")
+    names = set(os.listdir(log_dir))
+    check({"config.json", "metrics.jsonl", "log.txt", "torch"} <= names
+          and os.listdir(os.path.join(log_dir, "torch", "ckpt")) == ["0.pt"],
+          f"phase 30 torchrun: files {sorted(names)}")
+    print(f"phase 30: torchrun --nproc_per_node 1 train_torch.py (NCCL, W = 1): one epoch of 2 "
+          f"steps and 1 validation batch in {wall:.1f} s with the start-up; rank 0's files and "
+          f"checkpoint written")
+
+    # evaluate_torch.py --dp under torchrun at W = 1 (NCCL) on that run's
+    # checkpoint, over the fan-out's 27 pairs (f32, the CLI's default),
+    # against evaluate_torch.py in a plain process (the same defaults: TF32
+    # on in cuDNN, which this process turns off)
+    from i2pnet_tpu_torch.eval import analysis
+
+    eval_argv = [os.path.join(here, "evaluate_torch.py"), "--dataset", "kd_corr_nolidar",
+                 "--network", "i2pnet_proj", "--root_path", os.path.join(work, "eval_data"),
+                 "--model_dir", log_dir, "--batch_size", str(BATCH), "--log_dir"]
+    dirs = [os.path.join(work, d) for d in ("torchrun_eval", "single_eval")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         *eval_argv, dirs[0], "--dp"], capture_output=True, text=True, timeout=600, cwd=here,
+        env=dict(os.environ, NCCL_DEBUG="INFO"))
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"phase 30 torchrun evaluate_torch.py --dp: exit "
+                                f"{proc.returncode}\n{out[-4000:]}")
+    check(re.search(r"NCCL INFO", out) is not None,
+          "phase 30 torchrun evaluate_torch.py: no NCCL communicator")
+    proc = subprocess.run([sys.executable, *eval_argv, dirs[1]], capture_output=True, text=True,
+                          timeout=600, cwd=here)
+    check(proc.returncode == 0, f"phase 30 evaluate_torch.py: exit {proc.returncode}\n"
+                                f"{(proc.stdout + proc.stderr)[-4000:]}")
+    count = int(re.search(r"count: (\d+)", proc.stdout).group(1))
+    preds = [analysis.parse_prediction_file(os.path.join(d, "prediction.txt")) for d in dirs]
+    sections = []
+    for d in dirs:
+        with open(os.path.join(d, "prediction.txt")) as f:
+            sections.append([line for line in f if line.startswith(SECTION)])
+    names = [sorted(n.split("_")[0] if n.startswith("metrics_") else n for n in os.listdir(d))
+             for d in dirs]
+    gap = float(np.abs(preds[0]["pred"] - preds[1]["pred"]).max())
+    check(names[0] == names[1] and sections[0] == sections[1]
+          and len(sections[0]) == count == len(sets["proj"]),
+          f"phase 30 torchrun evaluate_torch.py --dp: files {names}, "
+          f"{len(sections[0])} sections against {len(sections[1])}")
+    check(np.array_equal(preds[0]["init"], preds[1]["init"])
+          and np.array_equal(preds[0]["gt"], preds[1]["gt"]) and gap <= 1e-4,
+          f"phase 30 torchrun evaluate_torch.py --dp: predictions {gap} from one process")
+    print(f"phase 30: torchrun --nproc_per_node 1 evaluate_torch.py --dp (NCCL, W = 1): "
+          f"{count} pairs in {wall:.1f} s with the start-up; the files and prediction.txt's "
+          f"sections of evaluate_torch.py in a plain process, the predictions within {gap:.3e}")
+
+    print(f"phase 30 times: {DP_RANKS} ranks time-sliced on one card, not a scaling figure; "
+          f"NCCL across cards is not exercised")
+    for family in ("proj", "free"):
+        dp_ms = max(rep["ms"][f"{family}_step"] for rep in reports)
+        print(f"phase 30 {family} train step at B={BATCH}: {ms[family]:.3f} ms in one process, "
+              f"{dp_ms:.3f} ms on {DP_RANKS} ranks time-sliced on one card (B={BATCH // DP_RANKS} "
+              f"a rank; the slower rank's median of {DP_TIMED_STEPS}) on {ctx.card}")
+        dp_rate = reports[0]["pairs_per_s"][f"{family}_fan_out"]
+        print(f"phase 30 {family} evaluator, {EVAL_STAGES}-stage cascade: {rates[family]:.2f} "
+              f"pairs/s in one process (mean_fps {fps[family]:.2f}), {dp_rate:.2f} pairs/s on "
+              f"{DP_RANKS} ranks time-sliced on one card (mean_fps "
+              f"{reports[0]['mean_fps'][f'{family}_fan_out']:.2f}), the loading included, on "
+              f"{ctx.card}")
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+
+def kernel_table():
+    """The kernels, each a dict of its name, module, wrapper (``fn``),
+    plain version, source and the TPU kernel it replaces: (eval kernels,
+    train kernels, the pallas backend's pair, the pool route at strides 1
+    and 2, the window select)."""
+    from i2pnet_tpu_torch.ops import (conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
+                                      pool_route_cuda, select_cuda)
+
     pcc = "i2pnet_tpu/ops/conv_pallas_train.py"
     eval_kernels = [
         dict(name="fps", module=fps_cuda, fn="fps_cuda", plain="fps_plain", src="fps.cu",
@@ -3133,29 +3826,63 @@ def main() -> int:
         dict(name="bn_pool_bwd_recompute", src="bn_pool_train.cu", replaces=f"{pcc}:397"),
     ]
     for k in train_kernels + pallas_kernels:
-        k.update(module=ct, fn=f"{k['name']}_cuda", plain=f"{k['name']}_plain")
+        k.update(module=conv_train_cuda, fn=f"{k['name']}_cuda", plain=f"{k['name']}_plain")
     route_kernels = [dict(name=f"pool_route_s{s}", module=pool_route_cuda, fn="pool_route_cuda",
                           plain="pool_route_plain", src="pool_route.cu",
                           replaces="i2pnet_tpu/nn/layers.py:165") for s in (1, 2)]
     select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
                   plain="selection_multiplicity_plain", src="select.cu",
                   replaces="i2pnet_tpu/ops/select_pallas.py:47")
+    return eval_kernels, train_kernels, pallas_kernels, route_kernels, select
+
+
+def _counted_modules():
+    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+
+    return {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda, "select": select_cuda}
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from i2pnet_tpu_torch.ops import conv_train_cuda, pool_route_cuda
+
+    for mod in _counted_modules().values():
+        mod.launches = 0
+    for counts in (conv_train_cuda.launches, pool_route_cuda.launches):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last reset_counts."""
+    from i2pnet_tpu_torch.ops import conv_train_cuda, pool_route_cuda
+
+    counts = {name: mod.launches for name, mod in _counted_modules().items()}
+    counts.update(conv_train_cuda.launches)
+    counts.update(pool_route_cuda.launches)
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test runs only on the card",
+              file=sys.stderr)
+        return 1
+
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
+                                      pool_route_cuda, select_cuda)
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step, make_train_step_proj
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ct = conv_train_cuda
+    eval_kernels, train_kernels, pallas_kernels, route_kernels, select = kernel_table()
     all_kernels = eval_kernels + train_kernels + [select] + pallas_kernels + route_kernels
-    single_modules = {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda,
-                      "select": select_cuda}
-
-    def reset_counts():
-        for mod in single_modules.values():
-            mod.launches = 0
-        for counts in (ct.launches, pool_route_cuda.launches):
-            for key in counts:
-                counts[key] = 0
-
-    def read_counts():
-        counts = {name: mod.launches for name, mod in single_modules.items()}
-        counts.update(ct.launches)
-        counts.update(pool_route_cuda.launches)
-        return counts
 
     # --- phase 1: build the kernels, name the card
     t0 = time.perf_counter()
@@ -3171,6 +3898,25 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
+
+    if "--phase" in sys.argv[1:]:  # phase 30 alone, after the build
+        only = sys.argv[sys.argv.index("--phase") + 1:][:1]
+        check(only == ["30"], f"--phase {only}: only phase 30 runs alone")
+        import shutil
+        import tempfile
+        import types
+
+        ctx = types.SimpleNamespace(train_kernels=train_kernels, fps=eval_kernels[0],
+                                    block=eval_kernels[1], cv1=eval_kernels[2], select=select,
+                                    card=card, dev=dev)
+        work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        try:
+            dp_phase(ctx, work, {})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(f"chip_smoke: phase 30 alone passed in {time.perf_counter() - t_start:.1f} s, "
+              f"the build included")
+        return 0
 
     # --- phase 2: the eval forward, with its kernel calls captured
     cfg = dataclasses.replace(I2PNetConfig(), compute_dtype="bfloat16")
@@ -3735,6 +4481,13 @@ def main() -> int:
     for row in rows:  # each kernel's calls on the new paths, timed as the row is
         if row["name"] in timed:
             row["new_paths"] = timed[row["name"]]
+
+    # --- phase 30: data parallelism, two ranks on the one card
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dp_phase(ctx, work, path_launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

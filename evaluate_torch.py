@@ -18,12 +18,17 @@ log_test.txt, prediction.txt and a metrics npz under --log_dir in the JAX
 package's formats; --analyze prints recall stats from the npz; --vis_rate N
 logs the init/pred/gt projection overlays of sample 0 of every Nth batch to
 a ``UniWriter`` on --log_dir (TensorBoard where tensorboardX is installed).
-Runs on the CUDA card unless ``--device cpu`` is given. The reference's
-released weights are converted with ``tools/reference_ckpt_to_torch.py``.
+Runs on the CUDA card unless ``--device cpu`` is given. ``--dp`` fans
+each batch out over the ranks of a torchrun launch (one process a card;
+rank 0 gathers out3 and alone writes), and gives the single-process
+outputs. The reference's released weights are converted with
+``tools/reference_ckpt_to_torch.py``.
 
     python3 evaluate_torch.py --model_dir runA runB --compute_dtype bfloat16
     python3 evaluate_torch.py --dataset kd_cmr_snr --network i2pnet --model_dir log/cmr \\
         --test_rt test_RT_seq00_10.00_2.00_0.pkl --seed 0 --tag _seed0
+    torchrun --nproc_per_node 4 evaluate_torch.py --dp --model_dir runA runB \
+        --compute_dtype bfloat16
 """
 
 from __future__ import annotations
@@ -74,8 +79,8 @@ def parse_args(argv=None):
                    help="online-calibration EFGH variant (kitti dataset, free-point "
                         "network): thread data['calib'] through the forward")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel eval fan-out; not ported (ROADMAP "
-                        "queue 1, item 9)")
+                   help="data-parallel eval fan-out over the ranks of a launch by "
+                        "torchrun --nproc_per_node N (one process a card)")
     p.add_argument("--knn_mode", default="exact", choices=["exact", "approx"],
                    help="level-1 KNN at eval. The port's KNN is always "
                         "exact, and 'approx' runs it too: the JAX package "
@@ -86,19 +91,45 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
+def _warn_ignored(args) -> None:
     if args.test_rt and args.dataset not in _READS_TEST_RT:
         warnings.warn(f"--test_rt {args.test_rt}: the {args.dataset} loader does not read it "
                       "(evaluate.py ignores it too)")
-    if args.dp:
-        raise NotImplementedError("--dp: the data-parallel fan-out is not ported "
-                                  "(ROADMAP queue 1, item 9)")
+
+
+def _dp_mesh(args):
+    """--dp's mesh: the process group torchrun's environment describes
+    (joined here unless already; then also whether this call started it),
+    on this rank's device."""
+    import torch.distributed as dist
+
+    from i2pnet_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    started = not dist.is_initialized() and maybe_initialize_distributed(device=args.device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "--dp runs one process a card and needs their process group: launch it as "
+            "torchrun --nproc_per_node N evaluate_torch.py --dp ...")
+    return make_mesh(args.device), started
 
 
 def main(argv=None):
-    """Run the protocol; returns the summary dict."""
+    """Run the protocol; returns the summary dict (None on the ranks
+    other than 0 under --dp)."""
     args = parse_args(argv)
-    _refuse_unported(args)
+    _warn_ignored(args)
+    mesh, started = _dp_mesh(args) if args.dp else (None, False)
+    try:
+        return _evaluate(args, mesh)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _evaluate(args, mesh):
+    lead = mesh is None or mesh.rank == 0
 
     from i2pnet_tpu_torch.cli import build, eval_split
     from i2pnet_tpu_torch.data import BatchLoader
@@ -119,13 +150,15 @@ def main(argv=None):
     # template sample; the port draws none, so the split starts from the seed
     test_ds = eval_split(args, cfg)
     loader = BatchLoader(test_ds, args.batch_size, shuffle=False, drop_last=False)
-    writer = UniWriter(args.log_dir) if args.vis_rate > 0 else None
+    writer = UniWriter(args.log_dir) if args.vis_rate > 0 and lead else None
     evaluator = Evaluator(models, cfg, proj=proj, log_dir=args.log_dir, tag=args.tag,
-                          writer=writer, vis_rate=args.vis_rate, device=args.device,
+                          writer=writer, vis_rate=args.vis_rate, mesh=mesh, device=args.device,
                           debug_nans=args.debug_nans)
     summary = evaluator.validate(loader)
     if writer is not None:
         writer.close()
+    if not lead:
+        return None
     print("== evaluation summary ==")
     for k, v in summary.items():
         print(f"  {k}: {v}")

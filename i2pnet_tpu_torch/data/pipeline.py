@@ -121,7 +121,13 @@ class BatchLoader:
         device_only: bool = False,
         transform: Optional[Callable[[dict], dict]] = None,
         num_workers: int = 0,
+        host_slice: Optional[slice] = None,
     ):
+        """host_slice: the rows of each global batch this process assembles
+        (``parallel.host_batch_slice``): every process draws the same seeded
+        shuffle and keeps its slice of each batch's indices, so the global
+        batch stays the one-process batch while each rank loads only its
+        samples. ``len`` counts global batches."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -130,6 +136,7 @@ class BatchLoader:
         self.device_only = device_only
         self.transform = transform
         self.num_workers = num_workers
+        self.host_slice = host_slice
         self.seed = seed
         self._epoch = 0
         self.rng = np.random.default_rng(seed)
@@ -158,7 +165,10 @@ class BatchLoader:
         if self.shuffle:
             self.rng.shuffle(idx)
         nb = len(self)
-        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
+        out = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
+        if self.host_slice is not None:
+            out = [b[self.host_slice] for b in out]
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.num_workers >= 1:

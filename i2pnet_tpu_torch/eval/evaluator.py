@@ -12,6 +12,18 @@ One module per cascade stage: the models share a config and each holds its
 own weights. Every stage runs through ``train/step.py``'s eval step, and
 every stage of an efgh cascade gets the batch's calibration matrix
 (``calib``) unchanged, only the cloud moves.
+
+With a mesh (``parallel/mesh.py``; ``evaluate_torch.py --dp`` under
+torchrun) the batches fan out over the ranks: every rank draws the same
+batches, takes ceil(n / W) rows of each (the tail repeating the last row,
+the JAX package's pad-and-trim) and runs the cascade on them under the
+mesh with its count of real rows, so the projection family's batch
+statistics take the real rows of every rank alone; out3 is gathered and
+rank 0 alone computes the metrics, writes the files and draws the
+overlays. ``validate`` returns the summary on rank 0 and None elsewhere.
+The fan-out gives the single-process evaluator's out3. (The JAX package's
+pads enter its proj statistics on a ragged batch, so there the port's
+``--dp`` is JAX's single-device evaluator, not its ``--dp``.)
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from i2pnet_tpu_torch import metrics as M
 from i2pnet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device, to_model_batch
 from i2pnet_tpu_torch.models.i2pnet import resolve_device
 from i2pnet_tpu_torch.ops import quaternion as Q
+from i2pnet_tpu_torch.parallel.mesh import Mesh, fan_out_rows, gather_rows, set_mesh
 from i2pnet_tpu_torch.train.step import make_eval_step, make_eval_step_proj
 
 SECTION = "§"  # section-sign framing (ref evaluation_proj.py:145-167)
@@ -53,14 +66,17 @@ class Evaluator:
         """writer, vis_rate: with a writer (``utils/monitor.py`` ``UniWriter``)
         and vis_rate=N, sample 0 of every Nth batch is drawn as init, pred
         and gt projection overlays (``_log_projection_images``); 0 draws
-        none. device: the models' device, the card unless ``"cpu"`` is given
-        (without a card that raises). debug_nans: check every stage's
-        out3/out4 with ``torch.isfinite`` and raise on the first non-finite
-        batch."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the data-parallel eval fan-out is not ported yet: ROADMAP queue 1, item 9")
+        none. mesh: a ``parallel.Mesh`` fans the batches out over its ranks
+        (module docstring). device: the models' device, the card unless
+        ``"cpu"`` is given (without a card that raises). debug_nans: check
+        every stage's out3/out4 with ``torch.isfinite`` and raise on the
+        first non-finite batch."""
         self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: expected a parallel.Mesh, got {type(mesh).__name__}")
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh lies on {mesh.device}, the evaluator on {self.device}")
+        self.mesh = mesh
         self.models = list(models)
         for m in self.models:
             dev = next(m.parameters()).device
@@ -78,7 +94,8 @@ class Evaluator:
         self.writer = writer
         self.vis_rate = int(vis_rate)
         self._vis_step = 0
-        os.makedirs(log_dir, exist_ok=True)
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(log_dir, exist_ok=True)
 
     def _check_finite(self, out: dict, stage: int, bi: int) -> None:
         for key in ("out3", "out4"):
@@ -132,6 +149,21 @@ class Evaluator:
                     stage_batch = dict(mb, lidar=Q.warp_points(mb["lidar"], q_acc, t_acc))
             return torch.cat([q_acc, t_acc], dim=1)
 
+    def _rank_rows(self, loader):
+        """The loader's batches; under a mesh, the model keys cut to this
+        rank's rows (``fan_out_rows``), with ``_fan_out`` = (the batch's
+        rows, this rank's real ones). The host keys (ground truth,
+        extrinsics, path_info) stay whole for rank 0's metrics."""
+        for batch in loader:
+            if self.mesh is None:
+                yield batch
+                continue
+            n = len(batch["rgb"])
+            idx, valid = fan_out_rows(n, self.mesh)
+            rows = {k: v[idx] for k, v in batch.items()
+                    if k in MODEL_KEYS and isinstance(v, np.ndarray)}
+            yield {**batch, **rows, "_fan_out": (n, valid)}
+
     def validate(self, loader: BatchLoader, save_metrics: bool = True) -> Dict:
         ev = M.RteRreEval()
         axis_errs: List = []
@@ -140,17 +172,25 @@ class Evaluator:
         msee_all: List[np.ndarray] = []
         cuda = self.device.type == "cuda"
 
-        batches = prefetch_to_device(loader, self.device, keys=MODEL_KEYS)
+        batches = prefetch_to_device(self._rank_rows(loader), self.device, keys=MODEL_KEYS)
         for bi, batch in enumerate(batches):
             mb = to_model_batch({k: v for k, v in batch.items() if isinstance(v, torch.Tensor)})
             mb.setdefault("raw_xyz", mb["lidar"])
 
             # the timed window: from the batch on the device and the device
-            # idle to out3 on the host
+            # idle to out3 on the host (every rank's, gathered)
             if cuda:
                 torch.cuda.synchronize(self.device)
             t0 = time.perf_counter()
-            out3_np = self.cascade(mb, bi).cpu().numpy()
+            if self.mesh is None:
+                out3 = self.cascade(mb, bi)
+            else:
+                n, valid = batch["_fan_out"]
+                with set_mesh(self.mesh, valid=valid):
+                    out3 = gather_rows(self.cascade(mb, bi), n, self.mesh)
+                if self.mesh.rank != 0:
+                    continue
+            out3_np = out3.cpu().numpy()
             batch_times.append((time.perf_counter() - t0, out3_np.shape[0]))
 
             q_gt = np.asarray(batch["decalib_real_gt"])
@@ -177,6 +217,8 @@ class Evaluator:
                     rows.append(f"{name} {vals}")
                 pred_lines.append("\n".join(rows))
 
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         rte_mean, rte_std, rre_mean, rre_std = ev.eval_seq()
         axis = np.concatenate([np.stack(a, -1) for a in axis_errs], 0).mean(0)
         # timing protocol, as the JAX package's: only FULL batches count,

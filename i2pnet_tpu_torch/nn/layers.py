@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from i2pnet_tpu_torch.ops import conv_cuda, conv_train_cuda, pool_route_cuda
+from i2pnet_tpu_torch.parallel.mesh import global_means
 
 # flax momentum 0.9 (running = 0.9 * running + 0.1 * batch), eps 1e-5
 BN_MOMENTUM = 0.9
@@ -84,7 +85,9 @@ class BatchNorm(nn.Module):
     E[x]^2`` clipped at 0 (biased), and moves the running statistics by
     ``update_running`` with that same biased variance. ``torch.nn.BatchNorm``
     differs on all three points (two-pass variance, an unbiased running
-    var, momentum 0.1), so the arithmetic is written out."""
+    var, momentum 0.1), so the arithmetic is written out. Under an ambient
+    mesh (``parallel/mesh.py``) the moments are the global batch's: the
+    f32 sums and the count are all-reduced, differentiably."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -97,8 +100,12 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            moments = global_means([xf, xf * xf], dims)
+            if moments is None:
+                mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+            else:
+                mean, mean2 = moments
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -126,7 +133,9 @@ class BatchStatsNorm(nn.Module):
     ``mean((x - mean)**2)`` (``jnp.var``), not ``BatchNorm``'s clipped fast
     one. Without ``dtype`` the normalisation is f32; with it, it runs in
     that dtype: ``(x - mean) * rsqrt(var + eps)``, then ``* scale + bias``,
-    each operand cast to it."""
+    each operand cast to it. Under an ambient mesh the two passes take the
+    valid rows of every rank: the sum and the count all-reduced for the
+    mean, then the squared deviations' sum."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -138,8 +147,13 @@ class BatchStatsNorm(nn.Module):
         """f32: normalise in f32 whatever ``dtype`` (``I2PNET_PW_BN_F32``)."""
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dims)
-        var = torch.square(xf - mean).mean(dims)
+        mean = global_means([xf], dims)
+        if mean is None:
+            mean = xf.mean(dims)
+            var = torch.square(xf - mean).mean(dims)
+        else:
+            mean = mean[0]
+            var = global_means([torch.square(xf - mean)], dims)[0]
         rs = torch.rsqrt(var + BN_EPS)
         if self.dtype is not None and not f32:
             dt = self.dtype

@@ -82,6 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from i2pnet_tpu_torch.ops import _build
+from i2pnet_tpu_torch.parallel.mesh import global_means
 
 # kernel launches since the last reset (read by chip_smoke.py); one per
 # call, each one CUDA launch
@@ -768,15 +769,24 @@ def fused_stage_train(x, blocks, strides, eps: float = 1e-5):
     unclipped), ``sc = gamma * rsqrt(var + eps)``, ``sh = beta - mean *
     sc``, then ``bn_pool``. The stats coupling is plain autograd.
 
+    Under an ambient mesh (``parallel/mesh.py``) the kernels run on this
+    rank's rows and ``s1 = sum y``, ``s2 = sum y**2`` and n are all-reduced,
+    differentiably, before the moments, as the JAX package psums them
+    inside its per-shard ``shard_map`` (conv_pallas_train.py:1261-1264).
+
     Returns ((B,Ho,Wo,channels[-1]) bf16, [(mean_j, var_j), ...])."""
     x = x.to(_BF)
     stats = []
     for (w, b, gamma, beta), s in zip(blocks, strides):
         y = conv_train(x, w, b)
         yf = y.float()
-        n = y.shape[0] * y.shape[1] * y.shape[2]
-        mean = yf.sum((0, 1, 2)) / n
-        mean2 = (yf * yf).sum((0, 1, 2)) / n
+        moments = global_means([yf, yf * yf], (0, 1, 2))
+        if moments is None:
+            n = y.shape[0] * y.shape[1] * y.shape[2]
+            mean = yf.sum((0, 1, 2)) / n
+            mean2 = (yf * yf).sum((0, 1, 2)) / n
+        else:
+            mean, mean2 = moments
         var = mean2 - mean * mean
         sc = gamma.float() * torch.rsqrt(var + eps)
         sh = beta.float() - mean * sc

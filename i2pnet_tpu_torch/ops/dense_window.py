@@ -12,7 +12,10 @@ B*N*K). No gather and no sort: m comes from the selection-multiplicity
 kernel (``ops/select_cuda.py``) on the card.
 
 The same real-number function as the gathered level; the floats differ
-only in the statistics' order of summation.
+only in the statistics' order of summation. Under an ambient mesh
+(``parallel/mesh.py``) the select kernel runs per rank on its rows, as the
+JAX package runs it per shard, and the weighted statistics take every
+rank's valid rows.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from i2pnet_tpu_torch.ops.pointops import safe_norm
+from i2pnet_tpu_torch.parallel.mesh import global_means
 from i2pnet_tpu_torch.ops.projection import strided_downsample, window_candidates
 from i2pnet_tpu_torch.ops.select_cuda import selection_multiplicity, window_multiplicity
 
@@ -90,8 +94,15 @@ def dense_pointnet_eval(xyz_raw: torch.Tensor, xyz: torch.Tensor, feature: torch
         else:
             x = torch.matmul(x, weight.t()) + bias
         x = x.float()
-        mean = torch.sum(x * mw, dim=dims) / total
-        var = torch.sum(torch.square(x - mean) * mw, dim=dims) / total
+        # under an ambient mesh, the weighted sums and the selected-slot
+        # count of every rank's valid rows, all-reduced
+        mean = global_means([x * mw], dims, per_row=N * nsample)
+        if mean is None:
+            mean = torch.sum(x * mw, dim=dims) / total
+            var = torch.sum(torch.square(x - mean) * mw, dim=dims) / total
+        else:
+            mean = mean[0]
+            var = global_means([torch.square(x - mean) * mw], dims, per_row=N * nsample)[0]
         y = (x - mean) * torch.rsqrt(var + eps)
         x = torch.relu(y * scale + shift)
 

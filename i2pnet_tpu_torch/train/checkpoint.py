@@ -19,7 +19,8 @@ resumed. Tensors are stored on the CPU, so a checkpoint loads on any
 device, and everything in a file is what ``torch.load(...,
 weights_only=True)`` reads (tensors, numbers, strings, lists and dicts).
 Each file is written to a temporary name and renamed, so a reader never
-sees half of one.
+sees half of one. Under a process group only rank 0 writes (``save`` and
+``save_best`` do nothing on the other ranks) and every rank reads.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import warnings
 from typing import Any, Dict, Optional
 
 import torch
+
+from i2pnet_tpu_torch.parallel.distributed import process_info
 
 SUBDIR = "torch"
 
@@ -82,14 +85,18 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self._ckpt_dir = os.path.join(self.directory, SUBDIR, "ckpt")
         self._best_dir = os.path.join(self.directory, SUBDIR, "best")
-        os.makedirs(self._ckpt_dir, exist_ok=True)
-        os.makedirs(self._best_dir, exist_ok=True)
+        self.writes = process_info()[0] == 0
+        if self.writes:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+            os.makedirs(self._best_dir, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self._ckpt_dir, f"{int(step)}.pt")
 
     def all_steps(self):
         steps = []
+        if not os.path.isdir(self._ckpt_dir):
+            return steps
         for name in os.listdir(self._ckpt_dir):
             stem, ext = os.path.splitext(name)
             if ext == ".pt" and stem.isdigit():
@@ -99,7 +106,9 @@ class CheckpointManager:
     def save(self, step: int, state: Any, meta: Optional[dict] = None) -> None:
         """Save ``state`` (a ``TrainState`` or a state dict as ``state_of``
         gives) as epoch checkpoint ``step``; drop the oldest past
-        ``max_to_keep``."""
+        ``max_to_keep``. Rank 0 alone writes."""
+        if not self.writes:
+            return
         _write(self._path(step), {"state": self._state(state), "meta": meta})
         steps = self.all_steps()
         for old in steps[: max(len(steps) - self.max_to_keep, 0)]:
@@ -122,7 +131,10 @@ class CheckpointManager:
         return payload["state"], payload.get("meta")
 
     def save_best(self, name: str, state: Any) -> None:
-        """Overwrite the named best snapshot (e.g. 'model_rotation_best')."""
+        """Overwrite the named best snapshot (e.g. 'model_rotation_best');
+        rank 0 alone writes."""
+        if not self.writes:
+            return
         _write(os.path.join(self._best_dir, f"{name}.pt"), {"state": self._state(state)})
 
     def has_best(self, name: str) -> bool:

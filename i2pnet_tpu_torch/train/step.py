@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
 from i2pnet_tpu_torch.losses import get_projection_gt, projection_mask_loss, registration_loss
+from i2pnet_tpu_torch.parallel.mesh import ambient_mesh, average_gradients_, average_metrics
 from i2pnet_tpu_torch.train.state import TrainState, clip_by_global_norm_
 
 
@@ -127,7 +128,14 @@ def _make_step(model, loss_fn, accum_steps: int = 1):
     ``.grad``; their sum is divided by ``accum_steps`` before the clip, then
     Adam makes one update and the schedule one step. With one microbatch
     the slice is the whole batch, the division by 1 and the mean of one
-    value are exact, so the plain step is this step bit for bit."""
+    value are exact, so the plain step is this step bit for bit.
+
+    Under an ambient mesh (``parallel/mesh.py`` ``shard_train_step``) every
+    gradient, zero-filled ones included, is averaged over the ranks after
+    the loop and before the clip (optax clips the gradient the update
+    sees), and so are the metrics. Every loss on a step path is a mean
+    over the rank's rows, which are as many on every rank, so the average
+    is the global batch's gradient."""
 
     def train_step(state: TrainState, batch: dict, generator=None) -> dict:
         B = batch["rgb"].shape[0]
@@ -152,12 +160,16 @@ def _make_step(model, loss_fn, accum_steps: int = 1):
                     p.grad = torch.zeros_like(p)
                 else:
                     p.grad.div_(accum_steps)
+        mesh = ambient_mesh()
+        if mesh is not None:
+            average_gradients_(model.parameters(), mesh)
         if state.clip > 0:
             clip_by_global_norm_(model.parameters(), state.clip)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: torch.stack([m[k] for m in metrics]).mean(0) for k in metrics[0]}
+        out = {k: torch.stack([m[k] for m in metrics]).mean(0) for k in metrics[0]}
+        return out if mesh is None else average_metrics(out, mesh)
 
     return train_step
 

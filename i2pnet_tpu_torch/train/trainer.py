@@ -13,8 +13,19 @@ with ``convert.load_flax_variables``). Everything runs on ``device``, the
 card unless ``"cpu"`` is given. Validation also gives the projection-mask
 accuracy ``acc`` of the mask head the JAX trainer reads (0.0 without one);
 with ``train_target="class"`` the run trains the mask heads alone and keeps
-``model_acc_best`` as its only snapshot. Not ported: the data-parallel
-mesh and the multi-process host slice (ROADMAP queue 1, item 9).
+``model_acc_best`` as its only snapshot.
+
+Under a process group (``torchrun --nproc_per_node N train_torch.py``;
+``parallel/distributed.py``) the trainer trains data-parallel, as the JAX
+trainer does over its devices: each rank loads its slice of every global
+batch (``host_batch_slice``), the ranks start from rank 0's model
+(``replicate_``, also after a resume) and run ``shard_train_step`` (global
+batch statistics, gradients averaged before the clip), and each rank
+draws dropout from its own generator, seeded from (seed, rank). Validation
+runs outside the DP context on every rank, over the whole split, as the
+JAX trainer's unsharded eval step; only rank 0 writes (the logs,
+config.json, the checkpoints and the bests), and the ranks meet at a
+barrier after each epoch's checkpoint.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from i2pnet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device, to_m
 from i2pnet_tpu_torch.eval.evaluator import MODEL_KEYS
 from i2pnet_tpu_torch.losses import get_projection_gt
 from i2pnet_tpu_torch.models.i2pnet import resolve_device
+from i2pnet_tpu_torch.parallel import distributed as D
+from i2pnet_tpu_torch.parallel.mesh import make_mesh, replicate_, shard_train_step
 from i2pnet_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
 from i2pnet_tpu_torch.train.state import create_train_state
 from i2pnet_tpu_torch.train.step import make_accum_train_step, make_eval_step, make_eval_step_proj
@@ -90,7 +103,11 @@ class Trainer:
         self.seed = seed
         self.log_dir = log_dir
         self.debug_nans = debug_nans
-        os.makedirs(log_dir, exist_ok=True)
+        # data parallel under a process group; rank 0 alone writes
+        self.mesh = make_mesh(self.device) if D.is_initialized() else None
+        self.rank, world = D.process_info()
+        if self.rank == 0:
+            os.makedirs(log_dir, exist_ok=True)
 
         self.writer = UniWriter(log_dir)
         resolved = {
@@ -106,12 +123,16 @@ class Trainer:
             "accum_steps": accum_steps,
         }
         self._check_config_consistency(resolved, resume)
+        D.barrier(self.mesh)  # every rank has read config.json before rank 0 writes it
         self.writer.config(resolved)
-        self._snapshot_sources(resume)
+        if self.rank == 0:
+            self._snapshot_sources(resume)
 
+        # this rank's rows of each global batch; the whole batch alone
+        self._host_slice = D.host_batch_slice(batch_size) if world > 1 else None
         self.train_loader = BatchLoader(
             train_dataset, batch_size, shuffle=True, seed=seed, device_only=True,
-            num_workers=num_workers,
+            num_workers=num_workers, host_slice=self._host_slice,
         )
         self.valid_loader = (
             BatchLoader(valid_dataset, batch_size, shuffle=False, seed=seed, drop_last=False)
@@ -127,6 +148,8 @@ class Trainer:
         # the plain steps are its one-microbatch case; B not divisible raises
         self._train_step = make_accum_train_step(model, cfg, accum_steps, proj=proj,
                                                  train_target=train_target)
+        if self.mesh is not None:
+            self._train_step = shard_train_step(self._train_step, self.mesh)
         self._eval_step = (make_eval_step_proj(model, cfg) if proj
                            else make_eval_step(model, cfg, self.state))
 
@@ -150,7 +173,13 @@ class Trainer:
                 for p, b in (meta.get("extra_best") or {}).items():
                     if p in self.extra_best:
                         self.extra_best[p] = {**self.extra_best[p], **b}
-            print(f"[trainer] resumed at epoch {self.start_epoch}")
+            self._print(f"[trainer] resumed at epoch {self.start_epoch}")
+        if self.mesh is not None:
+            replicate_(self.model, self.mesh)
+
+    def _print(self, line: str) -> None:
+        if self.rank == 0:
+            print(line)
 
     def _snapshot_sources(self, resume: bool) -> None:
         """Archive the port's sources (its .py files and its CUDA kernels'
@@ -190,7 +219,9 @@ class Trainer:
                 f"a non-finite loss or parameter after update {self.state.step}")
 
     def train(self) -> None:
-        generator = torch.Generator(self.device).manual_seed(self.seed + 1)
+        # dropout: one stream a rank, seeded from (seed, rank)
+        generator = torch.Generator(self.device).manual_seed(
+            self.seed + 1 + self.rank * 1_000_003)
         try:
             for epoch in range(self.start_epoch, self.epochs):
                 t0 = time.time()
@@ -212,7 +243,7 @@ class Trainer:
                 mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
                 dt = time.time() - t0
                 self.writer.add_scalar("train/epoch_time_s", dt, epoch)
-                print(f"[trainer] epoch {epoch}: mean loss {mean_loss:.4f} ({dt:.1f}s)")
+                self._print(f"[trainer] epoch {epoch}: mean loss {mean_loss:.4f} ({dt:.1f}s)")
 
                 if self.valid_loader is not None:
                     self._validate_and_track(self.valid_loader, self.best, "", epoch)
@@ -222,6 +253,7 @@ class Trainer:
                 self.ckpt.save(epoch, self.state, meta={
                     "epoch": epoch, "n_iter": self.n_iter, "best": self.best,
                     "extra_best": self.extra_best})
+                D.barrier(self.mesh)  # rank 0's files are whole before any rank reads them
         finally:
             self.train_loader.close()
 

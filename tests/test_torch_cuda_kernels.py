@@ -1006,3 +1006,106 @@ def test_kernels_at_batch_one(dev, kind, case):
         assert torch.equal(got, ref) and bool((got.sum(-1) == K).all())
     torch.cuda.synchronize()
     assert mod.launches == before + 1
+
+
+def _dp_cases():
+    """A rank's kernel calls on the data-parallel paths, two ranks on the
+    global batch of 8: the train kernels of every encoder block of the
+    free and the proj step at B=4, and the eval kernels of a cascade
+    stage at the evaluator's per-rank sizes, B=4 and the ragged 1-3."""
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+
+    cases = [("train", (4,) + c) for c in _encoder_calls(I2PNetConfig(), 384, 1280)]
+    cases += [("train", (4,) + c) for c in _encoder_calls(I2PNetProjConfig(), 160, 512)]
+    for B in (1, 2, 3, 4):
+        cases += [("fps", (B,)), ("cv1", (B,)), ("select", (B,)), ("block_free", (B,)),
+                  ("block_proj", (B,))]
+    return cases
+
+
+@pytest.mark.parametrize("kind,case", _dp_cases(),
+                         ids=[f"{k}-{'x'.join(map(str, c))}" for k, c in _dp_cases()])
+def test_kernels_at_dp_batch_sizes(dev, kind, case):
+    """Each kernel against its plain version at the bars of its own tests,
+    one launch a call: (a) within 0.01 * max(|ref|, 1), (b) within 2e-3 of
+    its largest entry and bit-identical on a repeat, (c) and (d) exactly;
+    FPS and select exactly, the block within 0.01 * max(|ref|, 1), cv1
+    within 5e-3."""
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+
+    ct = conv_train_cuda
+    B = case[0]
+    rng = np.random.default_rng(len(str(case)) + B)
+    if kind == "train":
+        _, H, W, cin, cout, stride = case
+        x = _bf16(dev, rng, B, H, W, cin)
+        w = _bf16(dev, rng, cout, 3, 3, cin, s=0.3)
+        b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+        g = _bf16(dev, rng, B, H, W, cout)
+        before = dict(ct.launches)
+        y, ref = ct.conv_fwd_cuda(x, w, b), ct.conv_fwd_plain(x, w, b)
+        assert float((y.float() - ref.float()).abs().max()) <= 0.01 * max(
+            float(ref.float().abs().max()), 1.0)
+        if cin % 8 == 0:  # the step's dx: every block but the image's
+            wt = w.flip(1, 2).permute(3, 1, 2, 0).contiguous()
+            dx, ref = ct.conv_dx_cuda(g, wt), ct.conv_dx_plain(g, wt)
+            assert float((dx.float() - ref.float()).abs().max()) <= 0.01 * max(
+                float(ref.float().abs().max()), 1.0)
+        dw, dw2 = ct.conv_dw_cuda(x, g), ct.conv_dw_cuda(x, g)
+        ref = ct.conv_dw_plain(x, g)
+        torch.cuda.synchronize()
+        assert torch.equal(dw, dw2)
+        assert float((dw - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
+        sc = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(dev)
+        sh = torch.from_numpy((0.1 * rng.normal(size=cout)).astype(np.float32)).to(dev)
+        out, taps = ct.bn_pool_fwd_cuda(y, sc, sh, stride)
+        out_ref, taps_ref = ct.bn_pool_fwd_plain(y, sc, sh, stride)
+        assert torch.equal(out, out_ref) and torch.equal(taps, taps_ref)
+        go = _bf16(dev, rng, *out.shape)
+        dz = ct.bn_pool_bwd_cuda(y, sc, sh, taps, go, stride)
+        torch.cuda.synchronize()
+        assert torch.equal(dz, ct.bn_pool_bwd_plain(y, sc, sh, taps, go, stride))
+        want = {"conv_fwd": 1, "conv_dx": int(cin % 8 == 0), "conv_dw": 2, "bn_pool_fwd": 1,
+                "bn_pool_bwd": 1}
+        assert {k: ct.launches[k] - before[k] for k in want} == want
+        return
+    mod = {"fps": fps_cuda, "cv1": cv_cuda, "select": select_cuda, "block_free": conv_cuda,
+           "block_proj": conv_cuda}[kind]
+    before = mod.launches
+    if kind == "fps":
+        levels = [(8192, 2048), (2048, 1024), (1024, 256), (256, 64)]
+        for N, npoint in levels:
+            xyz = torch.from_numpy(rng.uniform(-10, 10, size=(B, N, 3)).astype(np.float32)).to(dev)
+            assert torch.equal(fps_cuda.fps_cuda(xyz, npoint), fps_cuda.fps_plain(xyz, npoint))
+        calls = len(levels)
+    elif kind == "cv1":
+        ops = _cv1_operands(dev, B, 256, 480, 128, 128, 64, 64, 64, 128)
+        got, ref = cv_cuda.cv1_cuda(*ops), cv_cuda.cv1_plain(*ops)
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= 5e-3
+        calls = 1
+    elif kind == "select":
+        for grid, out_hw, qstride, kernel, K, distance in SELECT_LEVELS:
+            xyz = torch.from_numpy(_range_grid(rng, B, *grid)).to(dev)
+            got = select_cuda.selection_multiplicity_cuda(xyz, *out_hw, qstride, kernel, K, distance)
+            ref = select_cuda.selection_multiplicity_plain(xyz, *out_hw, qstride, kernel, K,
+                                                           distance)
+            assert torch.equal(got, ref) and bool((got.sum(-1) == K).all())
+        calls = len(SELECT_LEVELS)
+    else:
+        cfg, hw = ((I2PNetConfig(), (384, 1280)) if kind == "block_free"
+                   else (I2PNetProjConfig(), (160, 512)))
+        blocks = _encoder_calls(cfg, *hw)
+        for H, W, cin, cout, stride in blocks:
+            xb = _bf16(dev, rng, B, H, W, cin)
+            wb = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) / (3 * cin**0.5)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            scale, shift = (torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)
+                            for _ in range(2))
+            got = conv_cuda.conv_block_cuda(xb, wb, scale, shift, stride).float()
+            ref = conv_cuda.conv_block_plain(xb, wb, scale, shift, stride).float()
+            assert got.shape == ref.shape == (B, -(-H // stride), -(-W // stride), cout)
+            assert float((got - ref).abs().max()) <= 0.01 * max(float(ref.abs().max()), 1.0)
+        calls = len(blocks)
+    torch.cuda.synchronize()
+    assert mod.launches == before + calls

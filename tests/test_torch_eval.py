@@ -45,6 +45,7 @@ from i2pnet_tpu_torch.eval import Evaluator
 from i2pnet_tpu_torch.eval import analysis
 from i2pnet_tpu_torch.models import I2PNet, I2PNetProj
 from i2pnet_tpu_torch.ops import fps_cuda, quaternion as Q, se3
+from i2pnet_tpu_torch.parallel import Mesh
 from i2pnet_tpu_torch.losses import get_projection_gt
 from i2pnet_tpu_torch.train import create_train_state, make_eval_step, make_eval_step_proj
 from i2pnet_tpu_torch.train.checkpoint import CheckpointManager, restore_inference_variables
@@ -361,11 +362,18 @@ def test_evaluator_matches_jax(family, tmp_path, monkeypatch):
 
 
 def test_evaluator_refuses_what_is_not_ported():
-    """The data-parallel fan-out raises, naming its ROADMAP item (vis_rate
-    runs: tests/test_torch_visualize.py)."""
+    """The data-parallel fan-out takes the port's mesh (``parallel.Mesh``,
+    on the evaluator's device; the fan-out itself:
+    tests/test_torch_dp_eval.py) and refuses anything else (vis_rate runs:
+    tests/test_torch_visualize.py)."""
     model = _tiny_model()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         Evaluator([model], model.cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="the mesh lies on cuda:0"):
+        Evaluator([model], model.cfg, mesh=Mesh(0, 2, torch.device("cuda", 0)),
+                  device="cpu")
+    assert Evaluator([model], model.cfg, mesh=Mesh(0, 1, torch.device("cpu")),
+                     device="cpu").mesh.size == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Evaluator([model], model.cfg)

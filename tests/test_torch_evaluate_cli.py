@@ -108,13 +108,16 @@ def test_jax_checkpoint_evaluates_through_the_port(tmp_path, monkeypatch):
         assert "count=6" in f.read().split()
 
 
-def test_evaluate_torch_refuses_what_is_not_ported(tmp_path):
-    """--dp raises, naming its ROADMAP item (--vis_rate runs:
+def test_evaluate_torch_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """--dp without a process group raises and says how to launch it (with
+    one: tests/test_torch_dp_eval.py; --vis_rate runs:
     tests/test_torch_visualize.py). The datasets once refused here build
     evaluate.py's test split (``cli.eval_split``), and --test_rt is read for
     kd_cmr_snr and nus_cmr_snr."""
     base = ["--model_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(v, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node N evaluate_torch.py --dp"):
         evaluate_torch.main(base + ["--dp"])
     rt = str(tmp_path / "rt.csv")
     with open(rt, "w") as f:

@@ -61,6 +61,10 @@ NEW = [
     "i2pnet_tpu_torch.data.realloc",
     "i2pnet_tpu_torch.data.nuscenes_lite",
     "i2pnet_tpu_torch.data.preprocess_nuscenes",
+    # data parallelism on torch.distributed
+    "i2pnet_tpu_torch.parallel",
+    "i2pnet_tpu_torch.parallel.distributed",
+    "i2pnet_tpu_torch.parallel.mesh",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
            "tools/synthetic_convergence_torch.py", "tools/reference_ckpt_to_torch.py",
@@ -103,5 +107,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (56 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 56
+    # the walk found the whole package (59 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 59

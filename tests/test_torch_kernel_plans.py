@@ -54,8 +54,10 @@ def _encoder_convs(cfg, B, H, W):
     return shapes
 
 
+# B=4: a rank's rows of the global batch of 8 on two ranks (the DP step)
 DW_SHAPES = sorted(set(
     _encoder_convs(I2PNetConfig(), 8, 384, 1280) + _encoder_convs(I2PNetProjConfig(), 8, 160, 512)
+    + _encoder_convs(I2PNetConfig(), 4, 384, 1280) + _encoder_convs(I2PNetProjConfig(), 4, 160, 512)
     + [(1, 37, 45, 8, 24), (2, 16, 32, 3, 16), (1, 5, 300, 5, 8), (1, 9, 17, 128, 64),
        (1, 11, 40, 6, 8)]))
 
@@ -101,6 +103,8 @@ def _step_conv_calls(cfg, B, H, W):
 
 CONV_SHAPES = sorted(set(
     _step_conv_calls(I2PNetConfig(), 8, 384, 1280) + _step_conv_calls(I2PNetProjConfig(), 8, 160, 512)
+    + _step_conv_calls(I2PNetConfig(), 4, 384, 1280)
+    + _step_conv_calls(I2PNetProjConfig(), 4, 160, 512)
     + [(1, 37, 45, 8, 24), (1, 43, 211, 16, 16), (1, 29, 150, 5, 16), (1, 29, 150, 8, 16),
        (1, 12, 40, 176, 64), (1, 1, 1, 12, 24), (2, 5, 300, 3, 8), (1, 7, 9, 24, 128),
        (3, 130, 17, 40, 56), (1, 9, 1000, 64, 8)]))

@@ -78,8 +78,12 @@ def _calls(cfg, B, H, W):
     return calls
 
 
+# B=1-4: a rank's rows in the evaluator's fan-out over two ranks (ragged
+# tails included)
 BLOCK_SHAPES = sorted(set(
     _calls(I2PNetConfig(), 8, 384, 1280) + _calls(I2PNetProjConfig(), 8, 160, 512)
+    + [c for b in (1, 2, 3, 4) for c in _calls(I2PNetConfig(), b, 384, 1280)
+       + _calls(I2PNetProjConfig(), b, 160, 512)]
     + [(2, 9, 37, 3, 8, 1), (1, 1, 50, 3, 16, 2), (2, 7, 1, 16, 8, 2), (1, 6, 83, 64, 128, 1),
        (1, 13, 29, 12, 24, 1), (1, 17, 260, 16, 16, 2), (1, 4, 9, 256, 8, 1)]))
 

@@ -16,9 +16,15 @@ checkpoints with the optimizer state under ``<log_dir>/torch/``, validation
 and named best snapshots, config.json, metrics.jsonl and the text logs.
 ``--resume`` continues from the newest epoch checkpoint, also one that
 ``tools/jax_ckpt_to_torch.py`` converted from a JAX run. Runs on the CUDA
-card unless ``--device cpu`` is given.
+card unless ``--device cpu`` is given. Under ``torchrun --nproc_per_node N``
+it trains data-parallel on N cards (one process each, NCCL; gloo for
+``--device cpu``): each rank loads its slice of every --batch_size global
+batch, the normalisations take the global batch's statistics, and rank 0
+alone writes.
 
     python3 train_torch.py --root_path /dataset --log_dir log/cmr
+    torchrun --nproc_per_node 4 train_torch.py --dataset kd_corr_nolidar \
+        --network i2pnet_proj --compute_dtype bfloat16 --batch_size 32 --log_dir log/dp
     python3 train_torch.py --dataset kd_corr_nolidar --network i2pnet_proj \\
         --compute_dtype bfloat16 --num_workers 4 --log_dir log/proj
     python3 train_torch.py --dataset kitti --efgh --compute_dtype bfloat16 \\
@@ -78,22 +84,31 @@ def main(argv=None):
     """Train; returns the ``Trainer``."""
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
     from i2pnet_tpu_torch import cli
+    from i2pnet_tpu_torch.parallel import maybe_initialize_distributed
     from i2pnet_tpu_torch.train.trainer import Trainer
     from i2pnet_tpu_torch.utils.seeding import set_seed
 
-    set_seed(args.seed)
-    model, cfg, proj = cli.build(args)
-    train_ds, valid_ds = cli.build_datasets(args, cfg)
-    trainer = Trainer(
-        model, cfg, train_ds, valid_ds,
-        log_dir=args.log_dir, batch_size=args.batch_size, lr=args.lr,
-        weight_decay=args.weight_decay, clip=args.clip, epochs=args.max_epoch,
-        seed=args.seed, proj=proj, save_rate=args.save_rate, resume=args.resume,
-        accum_steps=args.accum_steps, run_flags=vars(args), train_target=args.train_target,
-        num_workers=args.num_workers, device=args.device, debug_nans=args.debug_nans,
-    )
-    trainer.train()
+    # torchrun's environment: one rank a card (no-op in a single process)
+    started = not dist.is_initialized() and maybe_initialize_distributed(device=args.device)
+    try:
+        set_seed(args.seed)
+        model, cfg, proj = cli.build(args)
+        train_ds, valid_ds = cli.build_datasets(args, cfg)
+        trainer = Trainer(
+            model, cfg, train_ds, valid_ds,
+            log_dir=args.log_dir, batch_size=args.batch_size, lr=args.lr,
+            weight_decay=args.weight_decay, clip=args.clip, epochs=args.max_epoch,
+            seed=args.seed, proj=proj, save_rate=args.save_rate, resume=args.resume,
+            accum_steps=args.accum_steps, run_flags=vars(args), train_target=args.train_target,
+            num_workers=args.num_workers, device=args.device, debug_nans=args.debug_nans,
+        )
+        trainer.train()
+    finally:
+        if started:
+            dist.destroy_process_group()
     return trainer
 
 

@@ -239,7 +239,24 @@ builders. Phases, each raising on failure:
    ``train_torch.py`` and ``evaluate_torch.py --dp`` (on its checkpoint,
    against ``evaluate_torch.py`` in a plain process) under
    ``torch.distributed.run --nproc_per_node 1`` (NCCL); the DP step's ms
-   and the fan-out's pairs/s beside one process's.
+   and the fan-out's pairs/s beside one process's; and the accumulating proj
+   step (``accum_steps=2``, each rank loading its share of each global
+   microbatch, ``host_batch_rows``) in bf16 and f32 against the
+   one-process accumulating step, at the same bars beside its controls
+   (the rows reversed within each microbatch), the two planted faults and a
+   third, 'contiguous' (each rank's contiguous rows cut into microbatches);
+31. the serving export: ``tools/export_model_torch.py``'s ``export_model``
+   on the shipped bf16 forwards (free at B=8 and B=1, proj at B=8), each
+   program saved to a file and served in a fresh ``python3`` that imports
+   torch and ``i2pnet_tpu_torch.ops.library`` alone (``serve_exported``):
+   q/t bit-identical to the eager forward, launches free FPS 4, encoder
+   block 15, cv1 1 and proj block 15, select 5, every call within its bar
+   against its plain version; the served forward's ms (3 windows of 20, and
+   graph-replayed) beside the eager forward's;
+32. the protocol rehearsal: ``tools/protocol_rehearsal_torch.py --families
+   proj`` at a reduced size (``REHEARSAL_ARGS``): train_torch.py ->
+   checkpoints -> evaluate_torch.py --analyze, its JSON lines, files and
+   finite metrics over the 8 test pairs.
 
 The script assumes no h5py or PIL: phases 24-29 stand in for the
 loaders' map read (``read_local_map``), nuScenes' frame decode
@@ -256,8 +273,9 @@ Prints the kernels' JSON line (times, bounds, launches on the path each
 row was timed on, and the launches on every path), then as its last line
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler breakdowns of the free forward, the
-train step, the proj forward and the proj train step; ``--phase 30`` runs
-the build and phase 30 alone, and prints neither JSON line). It never runs on
+train step, the proj forward and the proj train step; ``--phase N`` runs
+the build and phase N alone, for N = 30, 31 or 32, and prints neither JSON
+line). It never runs on
 the CPU: without a CUDA device it exits non-zero.
 """
 
@@ -266,6 +284,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3127,7 +3146,18 @@ DP_EVAL_FRAMES = {7: 14, 8: 13}  # 27 pairs: the last batch 3 rows, 2 + 1 padded
 DP_FREE_PAIRS = 2 * BATCH + 3
 DP_TRAIN_FRAMES = {0: 16, 9: 8}  # phase 18's layout: 2 steps and 1 validation batch an epoch
 DP_TIMED_STEPS = 3
-# the faults planted in the ranks' statistics all-reduce (``planted``)
+# the accumulating DP step (proj): 2 microbatches of the global 8, a rank
+# loading its share of each (host_batch_rows: rows 0, 1, 4, 5 and 2, 3, 6,
+# 7). Its controls keep each microbatch's rows and change their order: one
+# process with the rows interleaved within each microbatch (a reversal of
+# 4 rows keeps every pairwise sum, and read 0 on the card), and the ranks
+# with their 2 rows of each microbatch swapped
+DP_ACCUM = 2
+ACCUM_INTERLEAVED = (0, 2, 1, 3, 4, 6, 5, 7)
+ACCUM_RANK_SWAPPED = (1, 0, 3, 2)
+# the faults planted in the ranks' statistics all-reduce (``planted``); the
+# accumulating step adds 'contiguous', each rank's rows as one contiguous
+# slice cut into microbatches (the grouping before host_batch_rows)
 PLANTED = ("nondiff", "local")
 # the gradients' relative L2 gap from the one-process step over the leaves,
 # (median, largest): f32 from the f32 step, bf16 from the bf16 step; and
@@ -3137,6 +3167,16 @@ PLANTED = ("nondiff", "local")
 F32_GRAD_BARS = (5e-3, 0.1)
 BF16_GRAD_BARS = (0.25, 2.0)
 BF16_STAT_BAR = 1e-2
+# the accumulating bf16 step's gradient bar: its gap to the one-process f32
+# step within these multiples (median, largest) of the one-process bf16
+# step's own gap. Against the one-process bf16 step directly (the 0.25 /
+# 2.0 above) it reads 0.42 / 0.91 on the card while its controls (the same
+# microbatches, their rows in another order) read 6e-3 at most: the split
+# over ranks moves the f32 statistics at rounding level, which flips bf16
+# roundings and pool taps downstream, and a bf16 step sits 0.52 from the
+# f32 gradient in median either way; the faults sit 1.47-2.8x one
+# process's gap (the block comment at dp_phase)
+BF16_F32_GAP_RATIOS = (1.25, 1.5)
 DP_FREE_EVAL_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * 3,
                              encoder_block=15 * EVAL_STAGES * 3, cv1=EVAL_STAGES * 3)
 DP_PROJ_EVAL_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * 4,
@@ -3162,22 +3202,26 @@ def absorbed_biases(model) -> set:
     return out
 
 
-def dp_setup(family: str, dtype: str = "bfloat16", seed: int = SEED):
+def dp_setup(family: str, dtype: str = "bfloat16", seed: int = SEED, accum: int = 1):
     """A fresh seeded shipped-config model of the family in ``dtype``,
-    dropout off, its train state and plain step: (model, cfg, state,
+    dropout off, its train state and step (the plain step, or the
+    accumulating step over ``accum`` microbatches): (model, cfg, state,
     step)."""
     import torch
 
     from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
     from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
-    from i2pnet_tpu_torch.train import create_train_state, make_train_step, make_train_step_proj
+    from i2pnet_tpu_torch.train import (create_train_state, make_accum_train_step,
+                                        make_train_step, make_train_step_proj)
 
     Cfg, Model, make = ((I2PNetProjConfig, I2PNetProj, make_train_step_proj) if family == "proj"
                         else (I2PNetConfig, I2PNet, make_train_step))
     cfg = dataclasses.replace(Cfg(), compute_dtype=dtype, head_dropout_rate=0.0)
     model = init_random_(Model(cfg), torch.Generator().manual_seed(seed))
     state = create_train_state(model, steps_per_epoch=100)
-    return model, cfg, state, make(model, cfg)
+    step = (make_accum_train_step(model, cfg, accum, proj=family == "proj") if accum > 1
+            else make(model, cfg))
+    return model, cfg, state, step
 
 
 def dp_batch(family: str, dev) -> dict:
@@ -3209,15 +3253,15 @@ def step_tensors(model, metrics, params: bool = True) -> dict:
     return out
 
 
-def one_step(family: str, dtype: str, batch: dict, mesh=None, fault=None) -> dict:
+def one_step(family: str, dtype: str, batch: dict, mesh=None, fault=None, accum: int = 1) -> dict:
     """The seeded model's first step on batch (without params), in one
     process, or under mesh as a rank's DP step, with a fault planted where
-    asked."""
+    asked; over ``accum`` microbatches where asked."""
     import torch
 
     from i2pnet_tpu_torch.parallel import replicate_, shard_train_step
 
-    model, _, state, step = dp_setup(family, dtype)
+    model, _, state, step = dp_setup(family, dtype, accum=accum)
     if mesh is not None:
         replicate_(model, mesh)
         step = shard_train_step(step, mesh)
@@ -3349,7 +3393,7 @@ def dp_rank(rank: int, work: str) -> None:
                       LOCAL_WORLD_SIZE=str(DP_RANKS))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from i2pnet_tpu_torch.parallel import (host_batch_slice, make_mesh,
+    from i2pnet_tpu_torch.parallel import (host_batch_rows, host_batch_slice, make_mesh,
                                            maybe_initialize_distributed, replicate_,
                                            shard_train_step)
 
@@ -3412,6 +3456,30 @@ def dp_rank(rank: int, work: str) -> None:
                 if rank == 0:
                     tensors[f"{family}_{name}"] = out
             del batch, runs
+
+        # the accumulating proj step: the rank's share of each global
+        # microbatch (host_batch_rows), in both dtypes, counted in bf16; rank 0
+        # keeps the faults ('contiguous': the rank's contiguous rows) and the
+        # control (the rank's 2 rows of each microbatch swapped)
+        full = dp_batch("proj", mesh.device)
+        grouped = torch.as_tensor(host_batch_rows(BATCH, DP_ACCUM), device=mesh.device)
+        batch = {k: v[grouped] for k, v in full.items()}
+        contiguous = {k: v[rows] for k, v in full.items()}
+        for dtype in ("bfloat16", "float32"):
+            reset_counts()
+            tensors[f"accum_{dtype}"] = one_step("proj", dtype, batch, mesh, accum=DP_ACCUM)
+            torch.cuda.synchronize()
+            report["launches"][f"proj_accum_{dtype}"] = read_counts()
+            runs = {f"{dtype}_{fault}": (batch, fault) for fault in PLANTED}
+            runs[f"{dtype}_contiguous"] = (contiguous, None)
+            swap = torch.as_tensor(ACCUM_RANK_SWAPPED, device=mesh.device)
+            runs[f"{dtype}_swapped"] = ({k: v[swap] for k, v in batch.items()}, None)
+            for name, (rows_in, fault) in runs.items():
+                out = one_step("proj", dtype, rows_in, mesh, fault, accum=DP_ACCUM)
+                if rank == 0:
+                    tensors[f"accum_{name}"] = out
+        del full, batch, contiguous, runs
+        torch.cuda.empty_cache()
 
         # the Trainer at W = 2 on phase 18's layout: 2 steps, 1 validation batch
         report["launches"]["trainer"], report["trainer_files"] = dp_trainer(
@@ -3511,6 +3579,16 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
                                    {k: v.flip(0) for k, v in four.items()})):
             ref[f"{family}_{name}"] = one_step(family, dtype, rows)
         del batch, flip, four
+    # the accumulating proj step over the whole batch, and its control: the
+    # rows interleaved within each microbatch (the same microbatches, their
+    # sums in another order)
+    batch = dp_batch("proj", ctx.dev)
+    within = torch.as_tensor(ACCUM_INTERLEAVED, device=ctx.dev)
+    for dtype in ("bfloat16", "float32"):
+        ref[f"accum_{dtype}"] = one_step("proj", dtype, batch, accum=DP_ACCUM)
+        ref[f"accum_{dtype}_interleaved"] = one_step(
+            "proj", dtype, {k: v[within] for k, v in batch.items()}, accum=DP_ACCUM)
+    del batch
     _, single_files = dp_trainer(os.path.join(work, "trainer_single"), work)
     sets = dp_eval_sets(work)
     single_eval, rates, fps = {}, {}, {}
@@ -3572,7 +3650,15 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
     # 2.5e-2, 'nondiff' 0.54 and 0.62 in median; bf16 gradients 0.15 / 1.1
     # and 0.14 / 0.92, controls up to 0.13 / 1.0, the faults 0.38-1.1 in
     # median; bf16 statistics 4.4e-3 and 5.0e-3, controls up to 2.0e-3,
-    # 'local' 0.12 and 0.058.
+    # 'local' 0.12 and 0.058. The accumulating proj step (2 microbatches, 2
+    # rows of each a rank) takes the same bars, but for its bf16 gradients:
+    # against one process they read 0.42 / 0.91 while its controls read
+    # 3.5e-3 / 4.3e-2 (one process, rows interleaved) and 5.7e-3 / 4.9e-2
+    # (the ranks' rows swapped), so its bar is the gap to the one-process
+    # f32 step, within BF16_F32_GAP_RATIOS of the one-process bf16 step's
+    # (0.525 / 1.53): DP 0.543 / 1.48, the faults 0.774 ('nondiff'), 1.49
+    # ('local') and 1.30 ('contiguous') in median; f32 gradients 6.4e-4 /
+    # 3.5e-2, controls up to 7.1e-4 / 1.4e-2, the faults 0.58-1.41.
     def leaf_gaps(got, want, skip):
         return {k: float((got[k] - w).norm()) / (float(w.norm()) + 1e-12)
                 for k, w in want.items() if k not in skip}
@@ -3592,58 +3678,78 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
     def fmt(pair):
         return f"{pair[0]:.3e} / {pair[1]:.3e}"
 
+    def hold(label, dtype, single, dp, start, controls, faults, skip, f32=None,
+             anchored=False):
+        """Every bar of dtype for the DP step dp against the one-process
+        step single, beside the controls' readings; each fault must break
+        one. With f32 (the one-process f32 step), each bf16 run's gradient
+        gap to it is printed too; ``anchored`` makes that gap the gradient
+        bar: dp's within BF16_F32_GAP_RATIOS of single's."""
+        loss_bar, grad_bars = ((1e-4, F32_GRAD_BARS) if dtype == "float32"
+                               else (2e-3, BF16_GRAD_BARS))
+        if anchored:
+            own = grad_gap(single, f32, skip)
+            grad_bars = tuple(r * g for r, g in zip(BF16_F32_GAP_RATIOS, own))
+
+        def bars_broken(got):
+            med, top = grad_gap(got, f32 if anchored else single, skip)
+            out = []
+            if loss_gap(got, single) > loss_bar:
+                out.append("loss")
+            if dtype == "float32":
+                if not all(torch.allclose(got["buffers"][k], b, rtol=1e-5, atol=1e-6)
+                           for k, b in single["buffers"].items()):
+                    out.append("statistics")
+            elif stat_gap(got["buffers"], single["buffers"], start) > BF16_STAT_BAR:
+                out.append("statistics")
+            if med > grad_bars[0] or top > grad_bars[1]:
+                out.append("gradients")
+            return out
+
+        broken = bars_broken(dp)
+        gaps = leaf_gaps(dp["grads"], single["grads"], skip)
+        bars = (f"against the f32 step {fmt(grad_gap(dp, f32, skip))}, bars "
+                f"{fmt(grad_bars)}: {BF16_F32_GAP_RATIOS} x one process's {fmt(own)}; "
+                if anchored else f"bars {fmt(grad_bars)}; ")
+        print(f"{label} step on {DP_RANKS} ranks (B={BATCH // DP_RANKS} a rank) against one "
+              f"process: loss {float(dp['metrics']['loss']):.6f} / "
+              f"{float(single['metrics']['loss']):.6f}, gap {loss_gap(dp, single):.3e} (bar "
+              f"{loss_bar:g}); statistics {stat_gap(dp['buffers'], single['buffers'], start):.3e}"
+              f"{'' if dtype == 'float32' else f' (bar {BF16_STAT_BAR:g})'}; gradients over "
+              f"{len(gaps)} leaves (the {len(skip)} absorbed biases excluded), median / largest "
+              f"{fmt(grad_gap(dp, single, skip))} ({bars}the largest at "
+              f"{max(gaps, key=gaps.get)})")
+        for name, (a, b) in controls.items():
+            print(f"{label} control, {name}: loss {loss_gap(b, a):.3e}; statistics "
+                  f"{stat_gap(b['buffers'], a['buffers'], start):.3e}; gradients "
+                  f"{fmt(grad_gap(b, a, skip))}")
+        for fault, got in faults.items():
+            hit = bars_broken(got)
+            print(f"{label} planted '{fault}': loss {loss_gap(got, single):.3e}; statistics "
+                  f"{stat_gap(got['buffers'], single['buffers'], start):.3e}; gradients "
+                  f"{fmt(grad_gap(got, single, skip))}; breaks {hit}")
+            check(hit, f"{label}: the planted '{fault}' fault breaks no bar")
+        if f32 is not None:
+            runs = {"one process": single, "DP": dp, **{f"control '{n}'": b for n, (_, b) in
+                                                       controls.items()}, **faults}
+            print(f"{label}, gradients against the f32 step: " + "; ".join(
+                f"{n} {fmt(grad_gap(g, f32, skip))}" for n, g in runs.items()))
+        check(not broken, f"{label}: the DP step breaks the bars of {broken}")
+
     for family in ("proj", "free"):
         skip, r0 = ref[family], ranks[0]
-        for dtype, loss_bar, grad_bars in (("float32", 1e-4, F32_GRAD_BARS),
-                                           ("bfloat16", 2e-3, BF16_GRAD_BARS)):
+        for dtype in ("float32", "bfloat16"):
             single, dp = ref[f"{family}_{dtype}"], r0[f"{family}_{dtype}"]
-            start = ref[f"{family}_{dtype}_start"]
-            rev = ref[f"{family}_{dtype}_reversed"]
-            controls = {"one process, rows reversed": (single, rev)}
+            controls = {"one process, rows reversed": (single, ref[f"{family}_{dtype}_reversed"])}
             if dtype == "float32":
                 controls["one process at B=4, rows reversed"] = (
                     ref[f"{family}_float32_b4"], ref[f"{family}_float32_b4_reversed"])
                 controls[f"{DP_RANKS} ranks, each rank's rows reversed"] = (
                     dp, r0[f"{family}_float32_flipped"])
-
-            def bars_broken(got):
-                med, top = grad_gap(got, single, skip)
-                out = []
-                if loss_gap(got, single) > loss_bar:
-                    out.append("loss")
-                if dtype == "float32":
-                    if not all(torch.allclose(got["buffers"][k], b, rtol=1e-5, atol=1e-6)
-                               for k, b in single["buffers"].items()):
-                        out.append("statistics")
-                elif stat_gap(got["buffers"], single["buffers"], start) > BF16_STAT_BAR:
-                    out.append("statistics")
-                if med > grad_bars[0] or top > grad_bars[1]:
-                    out.append("gradients")
-                return out
-
-            label = f"phase 30 {family} {dtype}"
-            broken = bars_broken(dp)
-            gaps = leaf_gaps(dp["grads"], single["grads"], skip)
-            print(f"{label} step on {DP_RANKS} ranks (B={BATCH // DP_RANKS} a rank) against one "
-                  f"process: loss {float(dp['metrics']['loss']):.6f} / "
-                  f"{float(single['metrics']['loss']):.6f}, gap {loss_gap(dp, single):.3e} (bar "
-                  f"{loss_bar:g}); statistics {stat_gap(dp['buffers'], single['buffers'], start):.3e}"
-                  f"{'' if dtype == 'float32' else f' (bar {BF16_STAT_BAR:g})'}; gradients over "
-                  f"{len(leaf_gaps(dp['grads'], single['grads'], skip))} leaves (the {len(skip)} "
-                  f"absorbed biases excluded), median / largest {fmt(grad_gap(dp, single, skip))} "
-                  f"(bars {fmt(grad_bars)}; the largest at {max(gaps, key=gaps.get)})")
-            for name, (a, b) in controls.items():
-                print(f"{label} control, {name}: loss {loss_gap(b, a):.3e}; statistics "
-                      f"{stat_gap(b['buffers'], a['buffers'], start):.3e}; gradients "
-                      f"{fmt(grad_gap(b, a, skip))}")
-            for fault in PLANTED:
-                got = r0[f"{family}_{dtype}_{fault}"]
-                hit = bars_broken(got)
-                print(f"{label} planted '{fault}': loss {loss_gap(got, single):.3e}; statistics "
-                      f"{stat_gap(got['buffers'], single['buffers'], start):.3e}; gradients "
-                      f"{fmt(grad_gap(got, single, skip))}; breaks {hit}")
-                check(hit, f"{label}: the planted '{fault}' fault breaks no bar")
-            check(not broken, f"{label}: the DP step breaks the bars of {broken}")
+            hold(f"phase 30 {family} {dtype}", dtype, single, dp,
+                 ref[f"{family}_{dtype}_start"], controls,
+                 {f: r0[f"{family}_{dtype}_{f}"] for f in PLANTED}, skip,
+                 f32=ref[f"{family}_float32"] if dtype == "bfloat16" else None)
         for part in ("params", "buffers", "grads"):
             for dtype in ("bfloat16", "float32"):
                 a, b = ranks[0][f"{family}_{dtype}"][part], ranks[1][f"{family}_{dtype}"][part]
@@ -3656,6 +3762,36 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
         print(f"phase 30 {family}: the ranks' parameters, statistics and gradients "
               f"bit-identical (bf16 and f32); a second bf16 run bit-identical; kernel calls "
               f"against their plain versions, worst errors {errs}")
+
+    # the accumulating proj step: each rank's share of each global microbatch
+    for rep in reports:
+        for dtype in ("bfloat16", "float32"):
+            got = rep["launches"][f"proj_accum_{dtype}"]
+            want = (dict(NO_LAUNCHES) if dtype == "float32"
+                    else {k: DP_ACCUM * v for k, v in PROJ_TRAIN_LAUNCHES.items()})
+            check(got == want, f"phase 30 rank {rep['rank']} accumulating {dtype} step launches "
+                               f"{compact(got)}")
+    path_launches["dp_proj_accum_per_rank"] = reports[0]["launches"]["proj_accum_bfloat16"]
+    print(f"phase 30 launches a rank, the accumulating proj step (bf16, {DP_ACCUM} microbatches):"
+          f" {compact(reports[0]['launches']['proj_accum_bfloat16'])}")
+    r0 = ranks[0]
+    for dtype in ("float32", "bfloat16"):
+        single, dp = ref[f"accum_{dtype}"], r0[f"accum_{dtype}"]
+        controls = {"one process, rows interleaved within each microbatch": (
+            single, ref[f"accum_{dtype}_interleaved"]),
+            f"{DP_RANKS} ranks, each rank's rows of a microbatch swapped": (
+            dp, r0[f"accum_{dtype}_swapped"])}
+        hold(f"phase 30 proj {dtype} accum_steps={DP_ACCUM}", dtype, single, dp,
+             ref[f"proj_{dtype}_start"], controls,
+             {f: r0[f"accum_{dtype}_{f}"] for f in PLANTED + ("contiguous",)}, ref["proj"],
+             f32=ref["accum_float32"] if dtype == "bfloat16" else None,
+             anchored=dtype == "bfloat16")
+        for part in ("buffers", "grads"):
+            a, b = ranks[0][f"accum_{dtype}"][part], ranks[1][f"accum_{dtype}"][part]
+            check(all(torch.equal(v, b[k]) for k, v in a.items()),
+                  f"phase 30 accumulating {dtype} step: the ranks' {part} differ")
+    print(f"phase 30 accumulating proj step ({DP_ACCUM} microbatches, each rank its share of "
+          f"each): the ranks' statistics and gradients bit-identical (bf16 and f32)")
 
     # the Trainer at W = 2: rank 0's files alone, the single process's set
     check(reports[0]["trainer_files"] == reports[1]["trainer_files"] == single_files,
@@ -3794,15 +3930,199 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
     print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
 
 
-def kernel_table():
-    """The kernels, each a dict of its name, module, wrapper (``fn``),
-    plain version, source and the TPU kernel it replaces: (eval kernels,
-    train kernels, the pallas backend's pair, the pool route at strides 1
-    and 2, the window select)."""
-    from i2pnet_tpu_torch.ops import (conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
-                                      pool_route_cuda, select_cuda)
+# phase 31 exports the shipped configs' bf16 eval forwards through
+# tools/export_model_torch.py (free at B=8 and B=1, proj at B=8) and serves
+# each program in a fresh python3 that imports torch and the op library
+# alone (``serve_exported``); phase 32 runs tools/protocol_rehearsal_torch.py
+# on its proj family at a reduced size
+EXPORT_CASES = (("free", BATCH), ("free", 1), ("proj", BATCH))
+EXPORT_LAUNCHES = {"free": dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1),
+                   "proj": dict(NO_LAUNCHES, encoder_block=15, select=5)}
+REHEARSAL_ARGS = ("--families", "proj", "--frames", "20", "--max_epoch", "1")
+REHEARSAL_PAIRS = 8  # max(4, 20 // 10) frames of each test sequence, 7 and 8
 
-    pcc = "i2pnet_tpu/ops/conv_pallas_train.py"
+
+def serve_exported(cases_path: str) -> None:
+    """Phase 31's serving host, in a fresh python3: imports torch and the op
+    library alone, loads each program of cases_path, runs it once on its
+    inputs with the eval kernels' calls captured and counted, holds every
+    call against its plain version (phase 3's bars), and times it (median
+    of WINDOWS windows of ITERS calls, and replayed as a CUDA graph); saves
+    each case's outputs and readings to its ``result`` file."""
+    import torch
+
+    import i2pnet_tpu_torch.ops.library  # noqa: F401  (registers torch.ops.i2pnet.*)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eval_kernels, select = eval_kernel_table()
+    kernels = eval_kernels + [select]
+    counted = _counted_modules()
+    with open(cases_path) as f:
+        cases = json.load(f)
+    for case in cases:
+        t0 = time.perf_counter()
+        fn = torch.export.load(case["program"]).module()
+        load_s = time.perf_counter() - t0
+        args = torch.load(case["inputs"])
+        with torch.no_grad():
+            with Captures(kernels) as caps:
+                for mod in counted.values():
+                    mod.launches = 0
+                out = fn(*args)
+                torch.cuda.synchronize()
+                launches = dict(NO_LAUNCHES, **{k: m.launches for k, m in counted.items()})
+            print(f"phase 31 served {case['label']}:")
+            errors = {k["name"]: eval_kernel_error(k["name"], getattr(k["module"], k["plain"]),
+                                                   caps[k["name"]].calls)
+                      for k in kernels if caps[k["name"]].calls}
+            del caps
+            ms, spread = windows_ms(lambda: fn(*args))
+            graph_ms = cuda_ms(graph_of(lambda: fn(*args)).replay, ITERS)
+        torch.save({"out": {k: v.cpu() for k, v in out.items()}, "launches": launches,
+                    "errors": errors, "ms": ms, "spread": spread, "graph_ms": graph_ms,
+                    "load_s": load_s,
+                    "modules": sorted(m for m in sys.modules if m.startswith("i2pnet_tpu_torch"))},
+                   case["result"])
+        del fn, args, out
+        torch.cuda.empty_cache()
+
+
+def export_phase(ctx, work: str, path_launches: dict) -> None:
+    """Phase 31: each of EXPORT_CASES exported, timed eagerly and replayed
+    in this process, then served from its file in a fresh python3
+    (``serve_exported``): its outputs bit-identical to the eager forward's,
+    its launches those of the eager forward (EXPORT_LAUNCHES), every kernel
+    call within its bar, and no model code imported there."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
+
+    X = tool("export_model_torch")
+    cases, eager = [], {}
+    for family, B in EXPORT_CASES:
+        proj = family == "proj"
+        Cfg, Model = (I2PNetProjConfig, I2PNetProj) if proj else (I2PNetConfig, I2PNet)
+        cfg = dataclasses.replace(Cfg(), compute_dtype="bfloat16")
+        model = init_random_(Model(cfg), torch.Generator().manual_seed(SEED)).eval()
+        t0 = time.perf_counter()
+        blob = X.export_model(model, cfg, proj, B)
+        export_s = time.perf_counter() - t0
+        label = f"{family}_b{B}"
+        case = {"label": label, "family": family,
+                **{k: os.path.join(work, f"{label}.{ext}") for k, ext in
+                   (("program", "pt2"), ("inputs", "inputs.pt"), ("result", "result.pt"))}}
+        with open(case["program"], "wb") as f:
+            f.write(blob)
+        inputs = make_proj_inputs(ctx.dev) if proj else make_inputs(cfg, ctx.dev)
+        inputs = tuple(a[:B].contiguous() for a in inputs)
+        torch.save(inputs, case["inputs"])
+        with torch.no_grad():
+            reset_counts()
+            out3 = model(*inputs)["out3"]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            check(launches == EXPORT_LAUNCHES[family],
+                  f"phase 31 {label}: eager launches {compact(launches)}")
+            ms, spread = windows_ms(lambda: model(*inputs))
+            graph_ms = cuda_ms(graph_of(lambda: model(*inputs)).replay, ITERS)
+        eager[label] = dict(out3=out3.cpu(), ms=ms, spread=spread, graph_ms=graph_ms,
+                            export_s=export_s, mb=len(blob) / 1e6)
+        cases.append(case)
+        del model, inputs, out3, blob
+        torch.cuda.empty_cache()
+    cases_path = os.path.join(work, "cases.json")
+    with open(cases_path, "w") as f:
+        json.dump(cases, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                               f"chip_smoke.serve_exported({cases_path!r})"],
+        capture_output=True, text=True, timeout=600, cwd=here)
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 31 serving process: exit {proc.returncode}\n"
+                                f"{(proc.stdout + proc.stderr)[-4000:]}")
+    print(proc.stdout.rstrip())
+    for case in cases:
+        label, e = case["label"], eager[case["label"]]
+        r = torch.load(case["result"], weights_only=False)
+        got = r["out"]
+        check(torch.equal(got["q"], e["out3"][:, :4]) and torch.equal(got["t"], e["out3"][:, 4:]),
+              f"phase 31 {label}: the served program's q/t differ from the eager forward's")
+        check(r["launches"] == EXPORT_LAUNCHES[case["family"]],
+              f"phase 31 {label}: served launches {compact(r['launches'])}")
+        model_code = [m for m in r["modules"] if not m.startswith("i2pnet_tpu_torch.ops")
+                      and m != "i2pnet_tpu_torch"]
+        check(not model_code, f"phase 31: the serving process imported {model_code}")
+        path_launches[f"export_{label}"] = r["launches"]
+        B = e["out3"].shape[0]
+        print(f"phase 31 {label}: exported in {e['export_s']:.1f} s ({e['mb']:.1f} MB), loaded in "
+              f"{r['load_s']:.1f} s in the serving process; q/t bit-identical to the eager "
+              f"forward; launches {compact(r['launches'])}; worst kernel errors {r['errors']}")
+        print(f"phase 31 {label} forward at B={B}: served {r['ms']:.3f} ms (spread "
+              f"{r['spread']:.1f}%), served and graph-replayed {r['graph_ms']:.3f} ms; eager "
+              f"{e['ms']:.3f} ms (spread {e['spread']:.1f}%), eager graph-replayed "
+              f"{e['graph_ms']:.3f} ms, on {ctx.card}")
+    print(f"phase 31: the serving process in {serve_s:.1f} s, imports {r['modules']}")
+
+
+def rehearsal_phase(ctx, work: str) -> None:
+    """Phase 32: tools/protocol_rehearsal_torch.py's proj family at a reduced
+    size (REHEARSAL_ARGS): its JSON lines, the trainer's and the
+    evaluation's files, finite metrics over the test split's pairs."""
+    import numpy as np
+
+    from i2pnet_tpu_torch.eval import SECTION
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(work, "rehearsal")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "protocol_rehearsal_torch.py"), "--workdir",
+         root, *REHEARSAL_ARGS], capture_output=True, text=True, timeout=900, cwd=here)
+    wall = time.perf_counter() - t0
+    log = os.path.join(root, "proj", "run.log")
+    tail = open(log).read()[-3000:] if os.path.exists(log) else ""
+    check(proc.returncode == 0, f"phase 32 protocol_rehearsal_torch.py: exit {proc.returncode}\n"
+                                f"{(proc.stdout + proc.stderr)[-3000:]}\n{tail}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    check([(d["family"], d["stage"]) for d in lines]
+          == [("proj", s) for s in ("generated", "trained", "evaluated", "protocol")],
+          f"phase 32: stages {lines}")
+    evaluated, protocol = lines[2], lines[3]
+    check(evaluated["n_eval"] == protocol["n_eval"] == REHEARSAL_PAIRS
+          and all(math.isfinite(v) for k, v in evaluated.items() if k.startswith("mean_")),
+          f"phase 32: summary {evaluated}")
+    check(all(math.isfinite(v) for part in ("model", "identity") for v in protocol[part].values()),
+          f"phase 32: protocol {protocol}")
+    log_dir, info = os.path.join(root, "proj", "log"), os.path.join(root, "proj", "info_test")
+    names = set(os.listdir(log_dir))
+    ckpts = os.listdir(os.path.join(log_dir, "torch", "ckpt"))
+    check({"config.json", "metrics.jsonl", "log.txt", "torch"} <= names and ckpts,
+          f"phase 32: the trainer's files {sorted(names)}, checkpoints {ckpts}")
+    infos = os.listdir(info)
+    with open(os.path.join(info, "prediction.txt")) as f:
+        sections = sum(line.startswith(SECTION) for line in f)
+    check("prediction.txt" in infos and any(n.startswith("metrics_") for n in infos)
+          and sections == REHEARSAL_PAIRS, f"phase 32: evaluation files {sorted(infos)}, "
+                                           f"{sections} sections")
+    npz = np.load(os.path.join(info, sorted(n for n in infos if n.endswith(".npz"))[-1]))
+    check(len(npz["RRE"]) == REHEARSAL_PAIRS, f"phase 32: metrics npz {npz.files}")
+    print(f"phase 32: protocol_rehearsal_torch.py {' '.join(REHEARSAL_ARGS)}: "
+          f"{json.dumps(evaluated)}")
+    print(f"phase 32: {json.dumps(protocol)}")
+    print(f"phase 32: train_torch.py -> {len(ckpts)} checkpoints -> evaluate_torch.py --analyze "
+          f"-> prediction.txt ({sections} pairs) in {wall:.1f} s on {ctx.card}")
+
+
+def eval_kernel_table():
+    """The eval kernels and the window select, as ``kernel_table`` gives
+    them, from the op library's modules alone (phase 31's serving process
+    imports no other)."""
+    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+
     eval_kernels = [
         dict(name="fps", module=fps_cuda, fn="fps_cuda", plain="fps_plain", src="fps.cu",
              replaces="i2pnet_tpu/ops/fps_pallas.py:27"),
@@ -3812,6 +4132,21 @@ def kernel_table():
         dict(name="cv1", module=cv_cuda, fn="cv1_cuda", plain="cv1_plain", src="cv1.cu",
              replaces="i2pnet_tpu/ops/cv_pallas.py:58"),
     ]
+    select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
+                  plain="selection_multiplicity_plain", src="select.cu",
+                  replaces="i2pnet_tpu/ops/select_pallas.py:47")
+    return eval_kernels, select
+
+
+def kernel_table():
+    """The kernels, each a dict of its name, module, wrapper (``fn``),
+    plain version, source and the TPU kernel it replaces: (eval kernels,
+    train kernels, the pallas backend's pair, the pool route at strides 1
+    and 2, the window select)."""
+    from i2pnet_tpu_torch.ops import conv_train_cuda, pool_route_cuda
+
+    pcc = "i2pnet_tpu/ops/conv_pallas_train.py"
+    eval_kernels, select = eval_kernel_table()
     train_kernels = [
         dict(name="conv_fwd", src="conv_train.cu", replaces=f"{pcc}:103"),
         dict(name="conv_dx", src="conv_train.cu", replaces=f"{pcc}:103"),
@@ -3830,9 +4165,6 @@ def kernel_table():
     route_kernels = [dict(name=f"pool_route_s{s}", module=pool_route_cuda, fn="pool_route_cuda",
                           plain="pool_route_plain", src="pool_route.cu",
                           replaces="i2pnet_tpu/nn/layers.py:165") for s in (1, 2)]
-    select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
-                  plain="selection_multiplicity_plain", src="select.cu",
-                  replaces="i2pnet_tpu/ops/select_pallas.py:47")
     return eval_kernels, train_kernels, pallas_kernels, route_kernels, select
 
 
@@ -3899,9 +4231,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
 
-    if "--phase" in sys.argv[1:]:  # phase 30 alone, after the build
+    if "--phase" in sys.argv[1:]:  # one of phases 30-32 alone, after the build
         only = sys.argv[sys.argv.index("--phase") + 1:][:1]
-        check(only == ["30"], f"--phase {only}: only phase 30 runs alone")
+        phases = {"30": dp_phase, "31": export_phase,
+                  "32": lambda ctx, work, _: rehearsal_phase(ctx, work)}
+        check(len(only) == 1 and only[0] in phases,
+              f"--phase {only}: only phases {sorted(phases)} run alone")
         import shutil
         import tempfile
         import types
@@ -3909,13 +4244,13 @@ def main() -> int:
         ctx = types.SimpleNamespace(train_kernels=train_kernels, fps=eval_kernels[0],
                                     block=eval_kernels[1], cv1=eval_kernels[2], select=select,
                                     card=card, dev=dev)
-        work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_{only[0]}_")
         try:
-            dp_phase(ctx, work, {})
+            phases[only[0]](ctx, work, {})
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        print(f"chip_smoke: phase 30 alone passed in {time.perf_counter() - t_start:.1f} s, "
-              f"the build included")
+        print(f"chip_smoke: phase {only[0]} alone passed in {time.perf_counter() - t_start:.1f} "
+              f"s, the build included")
         return 0
 
     # --- phase 2: the eval forward, with its kernel calls captured
@@ -4486,6 +4821,18 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         dp_phase(ctx, work, path_launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # --- phase 31: the serving export; phase 32: the protocol rehearsal
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        t0 = time.perf_counter()
+        export_phase(ctx, work, path_launches)
+        print(f"phase 31: {time.perf_counter() - t0:.1f} s on {card}")
+        t0 = time.perf_counter()
+        rehearsal_phase(ctx, work)
+        print(f"phase 32: {time.perf_counter() - t0:.1f} s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -22,7 +22,7 @@ import concurrent.futures
 import multiprocessing
 import queue
 import threading
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -121,10 +121,11 @@ class BatchLoader:
         device_only: bool = False,
         transform: Optional[Callable[[dict], dict]] = None,
         num_workers: int = 0,
-        host_slice: Optional[slice] = None,
+        host_slice: Optional[Union[slice, np.ndarray]] = None,
     ):
-        """host_slice: the rows of each global batch this process assembles
-        (``parallel.host_batch_slice``): every process draws the same seeded
+        """host_slice: the rows of each global batch this process assembles,
+        a slice or an index array (``parallel.host_batch_rows``, which
+        groups a rank's rows by microbatch): every process draws the same seeded
         shuffle and keeps its slice of each batch's indices, so the global
         batch stays the one-process batch while each rank loads only its
         samples. ``len`` counts global batches."""

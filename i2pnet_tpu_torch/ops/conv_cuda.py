@@ -165,11 +165,7 @@ def conv_block_cuda(x, w, scale, shift, stride: int) -> torch.Tensor:
 
 
 def fused_conv_block(x, w, scale, shift, stride: int) -> torch.Tensor:
-    """One fused eval encoder block: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if x.is_cuda:
-        return conv_block_cuda(
-            x.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous(),
-            scale.contiguous(), shift.contiguous(), stride,
-        )
-    return conv_block_plain(x, w, scale, shift, stride)
+    """One fused eval encoder block, the op ``torch.ops.i2pnet.conv_block``
+    (``ops/library.py``): the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    return torch.ops.i2pnet.conv_block(x, w, scale, shift, stride)

@@ -109,10 +109,9 @@ def cv1_cuda(pn, t_pi, e_pi, qn, t_qi, e_qi, w1c, w2, b2, w3, b3, v1a, v1b, v1, 
 
 
 def cv1(*operands):
-    """The kernel for CUDA operands, the plain version for CPU operands."""
-    if operands[0].is_cuda:
-        return cv1_cuda(*(t.contiguous() for t in operands))
-    return cv1_plain(*operands)
+    """The op ``torch.ops.i2pnet.cv1`` (``ops/library.py``): the kernel for
+    CUDA operands, the plain version for CPU operands."""
+    return torch.ops.i2pnet.cv1(*operands)
 
 
 def fused_cv1_eval_supported(mlp1, mlp2) -> bool:

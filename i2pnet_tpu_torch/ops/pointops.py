@@ -2,9 +2,10 @@
 
 KNN is the exact dense form: expanded squared distances with a full-f32
 cross term, then a top-k that orders equal distances by index, as
-``lax.top_k`` does. FPS dispatches on the tensor's device: the
-CUDA kernel (``ops/fps_cuda.py``) for a CUDA tensor, the plain loop for a
-CPU one. Gathers are batched advanced indexing.
+``lax.top_k`` does. FPS is the op ``torch.ops.i2pnet.fps``, which
+dispatches on the tensor's device: the CUDA kernel (``ops/fps_cuda.py``)
+for a CUDA tensor, the plain loop for a CPU one. Gathers are batched
+advanced indexing.
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-
-from i2pnet_tpu_torch.ops import fps_cuda
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
@@ -85,6 +84,53 @@ def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.T
     return torch.sort(_order_key(vals, idx), dim=-1).values.bitwise_and_(0xFFFFFFFF)
 
 
+def masked_knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """KNN where points with mask == 0 sit at distance 1e10: (B, S, nsample)
+    indices, nearest first, equal distances lowest index first (the JAX
+    package's ``lax.top_k``). mask (B, N) in {0, 1}."""
+    sqrdists = square_distance(new_xyz, xyz)
+    mask = mask[:, None, :].to(sqrdists.dtype)
+    return knn_by_key(nsample, sqrdists * mask + 1e10 * (1.0 - mask))
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
+               new_xyz: torch.Tensor) -> torch.Tensor:
+    """The first nsample points within radius of each query, in index
+    order, padded with the first hit: (B, S, nsample) int64. A query with
+    no hit takes index 0. Out-of-range points get the sentinel N, a stable
+    sort brings the hits forward, and the sentinels left are replaced."""
+    N = xyz.shape[1]
+    sqrdists = square_distance(new_xyz, xyz)
+    arange = torch.arange(N, device=xyz.device).expand(sqrdists.shape)
+    cand = torch.where(sqrdists <= radius * radius, arange, N)
+    cand = torch.sort(cand, dim=-1, stable=True).values[:, :, :nsample]
+    cand = torch.where(cand == N, cand[:, :, 0:1], cand)
+    return torch.where(cand == N, 0, cand)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """The 3 nearest known points (B, M, 3) of each unknown point (B, N, 3):
+    (euclidean distances (B, N, 3), indices (B, N, 3)), nearest first, ties
+    lowest index first."""
+    sqrdists = square_distance(unknown, known)
+    idx = knn_by_key(3, sqrdists)
+    return torch.sqrt(torch.clamp(torch.gather(sqrdists, -1, idx), min=0.0)), idx
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Features (B, M, C) gathered at idx (B, N, 3) and summed with weight
+    (B, N, 3) -> (B, N, C)."""
+    return torch.sum(index_points(points, idx) * weight[..., None], dim=2)
+
+
+def interpolation_weights(dists: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance weights (B, N, 3) from three_nn's distances."""
+    recip = 1.0 / (dists + eps)
+    return recip / torch.sum(recip, dim=-1, keepdim=True)
+
+
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather points (B, N, C) by idx (B, S) or (B, S, K) -> (B, S[, K], C)."""
     if idx.dim() not in (2, 3):
@@ -97,12 +143,11 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS (B, N, 3) -> (B, npoint) int64, starting at index 0.
 
-    A CUDA tensor goes to the kernel (which raises on what it cannot take);
-    a CPU tensor to the plain loop. Both give the same indices.
+    The op ``torch.ops.i2pnet.fps`` (``ops/library.py``): a CUDA tensor goes
+    to the kernel (which raises on what it cannot take), a CPU tensor to
+    the plain loop. Both give the same indices.
     """
-    if xyz.is_cuda:
-        return fps_cuda.fps_cuda(xyz.contiguous(), npoint)
-    return fps_cuda.fps_plain(xyz, npoint)
+    return torch.ops.i2pnet.fps(xyz, npoint)
 
 
 def grouping(
@@ -129,6 +174,19 @@ def grouping(
     else:
         xyz_diff = grouped_xyz - q_xyz[:, :, None, :]
     return grouped_xyz, xyz_diff, grouped_feature, idx, grouped_raw
+
+
+def mask_grouping(feature: torch.Tensor, K: int, src_xyz: torch.Tensor, q_xyz: torch.Tensor,
+                  mask: torch.Tensor, use_xyz: bool = False):
+    """KNN-group around q_xyz among the source points with mask == 1.
+    Returns (grouped_xyz (B,S,K,3), xyz_diff (B,S,K,3), new_points
+    (B,S,K,C), or (B,S,K,3+C) with use_xyz, idx (B,S,K))."""
+    idx = masked_knn_point(K, src_xyz, q_xyz, mask)
+    packed = index_points(torch.cat([src_xyz, feature], dim=-1), idx)
+    grouped_xyz, grouped_feature = packed[..., :3], packed[..., 3:]
+    xyz_diff = grouped_xyz - q_xyz[:, :, None, :]
+    new_points = torch.cat([xyz_diff, grouped_feature], dim=-1) if use_xyz else grouped_feature
+    return grouped_xyz, xyz_diff, new_points, idx
 
 
 def sample_and_group(

@@ -91,6 +91,36 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
+    Shepperd's four candidates, one picked per matrix by ``torch.where``
+    (no data-dependent control flow), as the JAX package builds it."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0  # trace-dominant
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0  # m00 dominant
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0  # m11 dominant
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0  # m22 dominant
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond2 = (m11 >= m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w = q[..., 0:1]
+    return q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))
+
+
 def pose_to_matrix(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(q (B,4), t (B,3)) -> extrinsic (B, 3, 4)."""
     return torch.cat([quat_to_rotmat(q), t[..., None]], dim=-1)

@@ -107,14 +107,12 @@ def selection_multiplicity_cuda(xyz: torch.Tensor, out_h: int, out_w: int,
 def window_multiplicity(xyz: torch.Tensor, *, out_h: int, out_w: int, qstride: Tuple[int, int],
                         kernel_size: Tuple[int, int], K: int, distance: float,
                         raw_layout: bool = False) -> torch.Tensor:
-    """m (B, out_h*out_w, kh*kw + 1): the kernel for a CUDA tensor, the
-    plain version for a CPU one. ``raw_layout`` returns the same values as
-    (B, out_h, kh*kw + 1, out_w)."""
-    args = (out_h, out_w, tuple(qstride), tuple(kernel_size), K, distance)
-    if xyz.is_cuda:
-        m = selection_multiplicity_cuda(xyz.float().contiguous(), *args)
-    else:
-        m = selection_multiplicity_plain(xyz.float(), *args)
+    """m (B, out_h*out_w, kh*kw + 1), the op
+    ``torch.ops.i2pnet.select_multiplicity`` (``ops/library.py``): the
+    kernel for a CUDA tensor, the plain version for a CPU one.
+    ``raw_layout`` returns the same values as (B, out_h, kh*kw + 1, out_w)."""
+    m = torch.ops.i2pnet.select_multiplicity(xyz.float(), out_h, out_w, list(qstride),
+                                             list(kernel_size), K, float(distance))
     if raw_layout:
         m = m.reshape(xyz.shape[0], out_h, out_w, -1).permute(0, 1, 3, 2)
     return m

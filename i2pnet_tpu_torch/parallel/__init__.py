@@ -3,6 +3,7 @@
 
 from i2pnet_tpu_torch.parallel.distributed import (
     barrier,
+    host_batch_rows,
     host_batch_slice,
     maybe_initialize_distributed,
     process_info,
@@ -30,6 +31,7 @@ __all__ = [
     "fan_out_rows",
     "gather_rows",
     "global_means",
+    "host_batch_rows",
     "host_batch_slice",
     "make_mesh",
     "maybe_initialize_distributed",

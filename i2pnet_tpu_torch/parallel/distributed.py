@@ -6,7 +6,7 @@ One process per card. ``torchrun --nproc_per_node N`` starts them (or
 holds a CUDA context, so a forked child could use no CUDA call); every
 process runs the same program, ``maybe_initialize_distributed`` joins them
 into one process group and binds each to ``cuda:LOCAL_RANK``, and each
-loads only its rows of every global batch (``host_batch_slice``). A run
+loads only its rows of every global batch (``host_batch_rows``). A run
 with no torchrun environment is a single process: nothing is initialised
 and the "host slice" is the whole batch.
 
@@ -20,6 +20,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -96,6 +97,30 @@ def host_batch_slice(global_batch_size: int) -> slice:
         raise ValueError(f"process count {pcount} must divide global batch {global_batch_size}")
     per = global_batch_size // pcount
     return slice(pidx * per, (pidx + 1) * per)
+
+
+def host_batch_rows(global_batch_size: int, accum_steps: int = 1) -> np.ndarray:
+    """The rows of a global batch this rank loads, in order, when a step
+    takes it in ``accum_steps`` microbatches: the rank's share of each
+    global microbatch k, rows ``k*B/a + [r*B/(a*W), (r+1)*B/(a*W))`` for k in
+    order. A step that cuts the rank's rows into ``a`` microbatches
+    (``train/step.py`` ``_make_step``) then takes, in its microbatch k on
+    every rank, exactly the rows of the one-device step's microbatch k (the
+    JAX package's ``make_accum_train_step`` on the global batch), so the
+    all-reduced statistics are that microbatch's. With a = 1 these are the
+    rows of ``host_batch_slice``.
+
+    The JAX package runs where ``B % (a*W) != 0`` (its trainer drops to the
+    largest device count that divides B); a rank started by torchrun
+    cannot drop out, so this raises."""
+    _, pcount = process_info()
+    if accum_steps < 1 or global_batch_size % (accum_steps * pcount) != 0:
+        raise ValueError(
+            f"data parallelism needs B % (accum_steps * world) == 0: B {global_batch_size}, "
+            f"accum_steps {accum_steps}, world {pcount}")
+    micro = global_batch_size // accum_steps
+    share = np.arange(micro)[host_batch_slice(micro)]
+    return np.concatenate([k * micro + share for k in range(accum_steps)])
 
 
 def barrier(mesh) -> None:

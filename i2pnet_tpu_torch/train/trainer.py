@@ -18,7 +18,7 @@ with ``train_target="class"`` the run trains the mask heads alone and keeps
 Under a process group (``torchrun --nproc_per_node N train_torch.py``;
 ``parallel/distributed.py``) the trainer trains data-parallel, as the JAX
 trainer does over its devices: each rank loads its slice of every global
-batch (``host_batch_slice``), the ranks start from rank 0's model
+batch, grouped by microbatch (``host_batch_rows``), the ranks start from rank 0's model
 (``replicate_``, also after a resume) and run ``shard_train_step`` (global
 batch statistics, gradients averaged before the clip), and each rank
 draws dropout from its own generator, seeded from (seed, rank). Validation
@@ -106,6 +106,12 @@ class Trainer:
         # data parallel under a process group; rank 0 alone writes
         self.mesh = make_mesh(self.device) if D.is_initialized() else None
         self.rank, world = D.process_info()
+        # every rank's microbatches equal in size (the JAX trainer would drop
+        # to fewer devices; a torchrun rank cannot), checked before any write
+        if accum_steps >= 1 and batch_size % (accum_steps * world):
+            raise ValueError(
+                f"the train step needs B % (accum_steps * world) == 0: B {batch_size}, "
+                f"accum_steps {accum_steps}, world {world}")
         if self.rank == 0:
             os.makedirs(log_dir, exist_ok=True)
 
@@ -128,8 +134,9 @@ class Trainer:
         if self.rank == 0:
             self._snapshot_sources(resume)
 
-        # this rank's rows of each global batch; the whole batch alone
-        self._host_slice = D.host_batch_slice(batch_size) if world > 1 else None
+        # this rank's rows of each global batch, its share of each global
+        # microbatch in order (checked above); the whole batch alone
+        self._host_slice = D.host_batch_rows(batch_size, accum_steps) if world > 1 else None
         self.train_loader = BatchLoader(
             train_dataset, batch_size, shuffle=True, seed=seed, device_only=True,
             num_workers=num_workers, host_slice=self._host_slice,

@@ -150,6 +150,34 @@ def step_task(mesh, _dir, family, cfg_dict, state, batch, lr):
             "buffers": {k: b.clone() for k, b in model.named_buffers()}}
 
 
+def accum_step_task(mesh, _dir, family, cfg_dict, state, batch, lr, accum_steps):
+    """One DP accumulating step (``make_accum_train_step``) of the family's
+    model, twice from the same state: on this rank's rows grouped by
+    microbatch (``host_batch_rows``, as the Trainer loads them) and on its
+    contiguous rows (``host_batch_slice``, the grouping before it). Each
+    run's metrics, averaged gradients and statistics after the update."""
+    from i2pnet_tpu_torch.parallel import (host_batch_rows, host_batch_slice, replicate_,
+                                           shard_train_step)
+    from i2pnet_tpu_torch.train import create_train_state, make_accum_train_step
+
+    B = len(batch["rgb"])
+    out = {}
+    for name, rows in (("grouped", host_batch_rows(B, accum_steps)),
+                       ("contiguous", np.arange(B)[host_batch_slice(B)])):
+        model = build_model(family, cfg_dict)
+        if mesh.rank == 0:
+            model.load_state_dict(state)
+        replicate_(model, mesh)
+        st = create_train_state(model, lr=lr, steps_per_epoch=10)
+        step = shard_train_step(
+            make_accum_train_step(model, model.cfg, accum_steps, proj=family == "proj"), mesh)
+        metrics = step(st, {k: torch.from_numpy(v[rows]) for k, v in batch.items()})
+        out[name] = {"rows": rows, "metrics": {k: v.clone() for k, v in metrics.items()},
+                     "grads": _grads(model),
+                     "buffers": {k: b.clone() for k, b in model.named_buffers()}}
+    return out
+
+
 def evaluator_task(mesh, rank_dir, family, cfg_dict, states, samples, batch_size, cv1_model):
     """The DP Evaluator (a cascade of one model a state) over the samples:
     rank 0's summary, the out3 it scores, and its files; the other ranks'
@@ -236,5 +264,6 @@ def evaluate_cli_task(_mesh, rank_dir, argv):
 
 
 TASKS = {"stage": stage_task, "norms": norms_task, "step": step_task,
+         "accum_step": accum_step_task,
          "evaluator": evaluator_task, "train_cli": train_cli_task,
          "evaluate_cli": evaluate_cli_task}

@@ -65,10 +65,13 @@ NEW = [
     "i2pnet_tpu_torch.parallel",
     "i2pnet_tpu_torch.parallel.distributed",
     "i2pnet_tpu_torch.parallel.mesh",
+    # the eval kernels as torch.library ops (the serving export)
+    "i2pnet_tpu_torch.ops.library",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
            "tools/synthetic_convergence_torch.py", "tools/reference_ckpt_to_torch.py",
-           "tools/render_demo_torch.py", "tools/render_real_demo_torch.py"]
+           "tools/render_demo_torch.py", "tools/render_real_demo_torch.py",
+           "tools/export_model_torch.py"]
 
 PROBE = f"NEW = {NEW!r}\nSCRIPTS = {SCRIPTS!r}\n" + """
 import ast, importlib, importlib.util, os, pkgutil, sys
@@ -107,5 +110,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (59 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 59
+    # the walk found the whole package (60 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 60

@@ -256,13 +256,31 @@ builders. Phases, each raising on failure:
 32. the protocol rehearsal: ``tools/protocol_rehearsal_torch.py --families
    proj`` at a reduced size (``REHEARSAL_ARGS``): train_torch.py ->
    checkpoints -> evaluate_torch.py --analyze, its JSON lines, files and
-   finite metrics over the 8 test pairs.
+   finite metrics over the 8 test pairs;
+33. the code no model path runs, at full width: a ``dist_mode``
+   ``ProjectPointNet`` at the shipped ``lidar_lv1`` geometry on phase 10's
+   range images (B=8, 64x1800 -> 16x225): the bf16 eval forward on the
+   dense route (select 1, every call equal to its plain version), the f32
+   dense route against the f32 gathered one, a train-mode forward and
+   backward against the CPU's; a ``dist_mode`` ``ProjSetUpconv`` at the
+   first upconv's geometry (4x57 from 4x29), card against CPU, its
+   gradients too; ResNet-34 (``nn/resnet.py``) at B=8, 384x1280, bf16 and
+   f32: the card's f32 eval output against the CPU's (TF32 off, and on as
+   the control), the eager and graph-replayed forwards' ms, a train step's
+   ms and the peak memory; the generic window select + ``gather_grid``
+   against the grid select at the ``lidar_lv1`` geometry; the im2col
+   candidate builder against the default (``window_candidates``), bit for
+   bit and timed, at ``lidar_lv1`` and at every call site of the shipped
+   proj model's train step and eval forward, and the whole forward and
+   step under each.
 
-The script assumes no h5py or PIL: phases 24-29 stand in for the
-loaders' map read (``read_local_map``), nuScenes' frame decode
-(``read_image``; the real rig's too where neither cv2 nor PIL is
-installed) and the builders' h5 writes (``write_local_map``) alone, on
-files numpy wrote under the loaders' names, and time each kernel's calls
+The script assumes no h5py: phases 24-29 stand in for the loaders' map
+read (``read_local_map``) and the builders' h5 writes
+(``write_local_map``) alone, on files numpy wrote under the loaders'
+names. Camera frames are PNGs (``write_png``) under the loaders' names,
+decoded by the loaders' own ``read_image`` and held to the arrays written,
+where PIL (nuScenes) or cv2 or PIL (the real rig) is installed; without
+them .npy frames stand in (``read_npy_frame``). Each kernel's calls
 on the new paths (``new_paths`` in the JSON line; the B=1 calls of phase
 28 under ``demo_*_first_frame``).
 
@@ -274,7 +292,7 @@ row was timed on, and the launches on every path), then as its last line
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler breakdowns of the free forward, the
 train step, the proj forward and the proj train step; ``--phase N`` runs
-the build and phase N alone, for N = 30, 31 or 32, and prints neither JSON
+the build and phase N alone, for N = 30, 31, 32 or 33, and prints neither JSON
 line). It never runs on
 the CPU: without a CUDA device it exits non-zero.
 """
@@ -1903,19 +1921,61 @@ def read_npz_map(path: str):
 
 
 def read_npy_frame(path: str):
-    """Stands in for ``data/nuscenes.py`` ``read_image`` (PIL): the uint8
-    frame, from an .npy written under the frame's .jpg name."""
+    """Stands in for ``data/nuscenes.py`` ``read_image`` (PIL) where PIL is
+    not installed: the uint8 frame, from an .npy written under the frame's
+    .jpg name."""
     import numpy as np
 
     return np.load(path)
 
 
+def pil_decodes() -> bool:
+    """Whether nuScenes' ``read_image`` runs here (PIL installed)."""
+    import importlib.util
+
+    return importlib.util.find_spec("PIL") is not None
+
+
+def write_frame(path: str, frame, written: list) -> None:
+    """A camera frame under the loader's .jpg name: a PNG (``write_png``)
+    where PIL decodes it (PIL reads by content, not by name), else an .npy
+    for ``read_npy_frame``; (path, frame) appended to ``written`` (``check_decoded_frames``)."""
+    import numpy as np
+
+    from i2pnet_tpu_torch.eval.visualize import write_png
+
+    if pil_decodes():
+        write_png(path, frame)
+    else:
+        with open(path, "wb") as f:
+            np.save(f, frame)
+    written.append((path, frame))
+
+
+def check_decoded_frames(written: list, label: str) -> None:
+    """Every frame written, read back by nuScenes' own ``read_image``, equal
+    to the array written (where PIL is installed)."""
+    import numpy as np
+
+    from i2pnet_tpu_torch.data import nuscenes
+
+    if not pil_decodes():
+        print(f"{label}: no PIL here; the frames are .npy read by read_npy_frame")
+        return
+    for path, frame in written:
+        check(np.array_equal(nuscenes.read_image(path), frame),
+              f"{label}: {path} decoded by read_image differs from the array written")
+    print(f"{label}: {len(written)} PNG frames {written[0][1].shape} under .jpg names, each "
+          f"decoded by nuscenes.read_image (PIL) equal to the array written")
+
+
 class StandIns:
-    """The map read (and, with ``frames``, nuScenes' frame decode) replaced
-    by ``read_npz_map`` / ``read_npy_frame`` while active."""
+    """The map read (and, with ``frames`` where PIL is not installed,
+    nuScenes' frame decode) replaced by ``read_npz_map`` /
+    ``read_npy_frame`` while active."""
 
     def __init__(self, label: str, frames: bool = False):
-        self.label, self.frames = label, frames
+        self.label, self.frames = label, frames and not pil_decodes()
 
     def __enter__(self):
         from i2pnet_tpu_torch.data import kitti_odometry_cmr, nuscenes
@@ -2005,7 +2065,7 @@ def write_cmr_tree(root: str, rt_dir: str) -> None:
 def write_nus_tree(root: str, points, frames_dir=None) -> str:
     """The nuScenes loaders' layout: NUS_ENTRIES local maps (``points``, a
     (low, high) count each, of a street in LIDAR_TOP's frame), CAM_FRONT
-    frames of 900x1600x3 uint8 as .npy under .jpg names (written unless
+    frames of 900x1600x3 uint8 under .jpg names (``write_frame``; written unless
     ``frames_dir`` holds them: absolute camera paths, as the split lists
     keep them), and train_dataset0.list / test_dataset0.list over the same
     entries, ((map_relpath, cam_path), K, velo2cam2, meta). Returns the
@@ -2019,19 +2079,20 @@ def write_nus_tree(root: str, points, frames_dir=None) -> str:
     write_frames = frames_dir is None
     frames_dir = frames_dir or os.path.join(root, "samples", "CAM_FRONT")
     os.makedirs(frames_dir, exist_ok=True)
-    entries = []
+    entries, written = [], []
     for i in range(NUS_ENTRIES):
         pc = street_map(rng, int(rng.integers(points[0], points[1] + 1)))
         write_map(os.path.join(root, "maps", f"{i}.h5"), np.stack([-pc[1], pc[0], pc[2]]), rng)
         cam = os.path.join(frames_dir, f"{i}.jpg")
         if write_frames:
-            with open(cam, "wb") as f:
-                np.save(f, rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8))
+            write_frame(cam, rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8), written)
         entries.append(((f"maps/{i}.h5", cam), np.array(NUS_K), np.array(NUS_VELO2CAM),
                         {"token": f"{i:032x}"}))
     for split in ("train", "test"):
         with open(os.path.join(root, f"{split}_dataset0.list"), "wb") as f:
             pickle.dump(entries, f)
+    if written:
+        check_decoded_frames(written, "phase 25 nuScenes tree")
     return frames_dir
 
 
@@ -2938,7 +2999,7 @@ def write_nus_tables(root: str, rng) -> None:
     """A nuScenes v1.0 tree as numpy and json write it: one daytime and one
     night scene of NUS_KEYS key frames with a sweep between each two
     (LIDAR_TOP .pcd.bin, NUS_SWEEP_POINTS points in the local-map box),
-    CAM_FRONT frames (NUS_FRAME, .npy under .jpg names) and the seven JSON
+    CAM_FRONT frames (NUS_FRAME, ``write_frame`` under .jpg names) and the seven JSON
     tables, the ego yawed and driving ahead."""
     import numpy as np
     from scipy.spatial.transform import Rotation
@@ -2957,6 +3018,7 @@ def write_nus_tables(root: str, rng) -> None:
                    {"token": "sen_cam", "channel": "CAM_FRONT", "modality": "camera"}]
     t["log"] = [{"token": "log0", "logfile": "n008", "vehicle": "n008",
                  "date_captured": "2018-08-01", "location": "boston-seaport"}]
+    written = []
 
     def pose(tok, x, rot=yaw, z=0.0):
         t["ego_pose"].append({"token": f"ep_{tok}", "rotation": rot, "translation": [x, 0.0, z]})
@@ -2995,8 +3057,8 @@ def write_nus_tables(root: str, rng) -> None:
                                            "camera_intrinsic": [list(r) for r in NUS_K]})
             fn = f"samples/CAM_FRONT/{tok}.jpg"
             if name == "scene-0001":
-                with open(os.path.join(root, fn), "wb") as f:
-                    np.save(f, rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8))
+                write_frame(os.path.join(root, fn),
+                            rng.integers(0, 256, size=NUS_FRAME, dtype=np.uint8), written)
             t["sample_data"].append({
                 "token": tok, "sample_token": f"{name}_S{i}", "ego_pose_token": f"ep_{tok}",
                 "calibrated_sensor_token": f"cs_{tok}", "is_key_frame": True, "filename": fn,
@@ -3008,6 +3070,7 @@ def write_nus_tables(root: str, rng) -> None:
     for name, records in t.items():
         with open(os.path.join(root, "v1.0-trainval", f"{name}.json"), "w") as f:
             json.dump(records, f)
+    check_decoded_frames(written, "phase 29 nuScenes tables")
 
 
 def npz_local_map(path, pc, intensity) -> None:
@@ -4117,6 +4180,611 @@ def rehearsal_phase(ctx, work: str) -> None:
           f"-> prediction.txt ({sections} pairs) in {wall:.1f} s on {ctx.card}")
 
 
+# phase 33: the JAX package's code that no model path runs, at full width.
+# The dist_mode level at the shipped lidar_lv1 geometry launches the select
+# kernel once a forward on its dense eval route; the dense and gathered f32
+# routes meet at the dense tests' bar (tests/test_dense_window.py). The
+# card's f32 ResNet-34 and upconv against the CPU's with TF32 off, at
+# CARD_CPU_BAR: the sound readings lie at 3e-7-4e-6 of max(|ref|, 1), and
+# the same comparison with TF32 on (``tf32_on``, the control, read in every
+# run) must land above the bar, so a run where TF32 is silently on fails.
+# The card's f32 gradients against the CPU's at GRAD_BAR of the module's
+# largest gradient, the CPU tests' bar against JAX
+# (tests/test_torch_dist_mode.py). bf16 against f32 on the card at a bar
+# that catches a wrong layout or stride (O(1)).
+DIST_LAUNCHES = dict(NO_LAUNCHES, select=1)
+DIST_LEVEL = dict(out_h=16, out_w=225, stride_h=4, stride_w=8, kernel_size=(9, 15), nsample=32,
+                  distance=0.75, mlp=(16, 16, 32))
+DIST_UPCONV = dict(out_h=4, out_w=57, stride_h=1, stride_w=2, kernel_size=(5, 9), nsample=8,
+                   distance=9.0, mlp=(128, 64), mlp2=(64,))
+DENSE_BAR = 1e-5
+CARD_CPU_BAR = 1e-4
+GRAD_BAR = 1e-3
+BF16_BAR = 0.1
+TRAIN_ITERS = 5
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for convolutions and matmuls (the control of the card
+    against the CPU); off again after."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def proj_range_images(dev):
+    """Phase 10's proj inputs projected as ``I2PNetProj`` projects them:
+    (the shipped config, raw grid, warped grid, feature grid), 64x1800."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.models.i2pnet_proj import FEATURE_WIDTH
+    from i2pnet_tpu_torch.ops.projection import spherical_project
+
+    cfg = I2PNetProjConfig()
+    _, lidar, raw, _ = make_proj_inputs(dev)
+    feats0 = torch.zeros(BATCH, raw.shape[1], FEATURE_WIDTH, device=dev)
+    raw_grid, (norm_grid, xyz_grid) = spherical_project(
+        raw, [feats0, lidar], cfg.init_H, cfg.init_W, cfg.fup, cfg.fdown, use_rank=cfg.rank,
+        ref_pad_quirk=cfg.ref_pad_quirk)
+    return cfg, raw_grid, xyz_grid, norm_grid
+
+
+def true_zero_leaves(module) -> set:
+    """The Dense biases that feed a batch-statistics normalisation: the
+    normalisation subtracts the batch mean, so their true gradient is 0 and
+    a reading is rounding noise."""
+    return {f"{name}.Dense_0.bias" for name, m in module.named_modules()
+            if getattr(m, "Dense_0", None) is not None and getattr(m, "Dense_0").bias is not None
+            and (getattr(m, "BatchStatsNorm_0", None) is not None
+                 or getattr(m, "BatchNorm_0", None) is not None)}
+
+
+def train_grads(module, inputs, call_kw):
+    """A training-mode forward and backward of sum(out * cot), the first
+    input taking a gradient too: ({name: gradient}, the input's gradient).
+    The cotangent is drawn on the card from the seed, whatever the device."""
+    import torch
+
+    module.train()
+    module.zero_grad(set_to_none=True)
+    x0 = inputs[0].clone().requires_grad_()
+    out = module(x0, *inputs[1:], **call_kw)
+    feat = out[-1] if isinstance(out, tuple) else out
+    cot = torch.randn(feat.shape, generator=torch.Generator("cuda").manual_seed(SEED),
+                      device="cuda").to(feat.device)
+    (feat.float() * cot).sum().backward()
+    module.eval()
+    return {n: p.grad.clone() for n, p in module.named_parameters()}, x0.grad
+
+
+def grads_checked(module, inputs, call_kw, label: str) -> str:
+    """The card's training-mode gradients (``train_grads``) against the
+    same module's on the CPU, as max abs over max(largest |g| of the
+    module's parameters, 1), the input's over its own: every gradient
+    finite; within ``GRAD_BAR``, and the same with TF32 on (the control)
+    above it; every parameter's nonzero but the true-zero leaves'
+    (``true_zero_leaves``), whose readings are printed. Returns a summary."""
+    import copy
+
+    import torch
+
+    cpu_module = copy.deepcopy(module).cpu()
+    grads, x_grad = train_grads(module, inputs, call_kw)
+    with tf32_on():
+        tf32, x_tf32 = train_grads(module, inputs, call_kw)
+    torch.cuda.synchronize()
+    bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
+    check(not bad and bool(torch.isfinite(x_grad).all()),
+          f"{label}: gradients not finite: {bad[:5]}, input finite "
+          f"{bool(torch.isfinite(x_grad).all())}")
+    ref, x_ref = train_grads(cpu_module, [a.cpu() for a in inputs], call_kw)
+    scale = max(max(float(g.abs().max()) for g in ref.values()), 1.0)
+    x_scale = max(float(x_ref.abs().max()), 1.0)
+
+    def gaps(got, x_got):
+        per = {n: float((g.cpu() - ref[n]).abs().max()) / scale for n, g in got.items()}
+        worst = max(per, key=per.get)
+        return per[worst], worst, float((x_got.cpu() - x_ref).abs().max()) / x_scale
+
+    gap, worst, x_gap = gaps(grads, x_grad)
+    ctl, ctl_worst, x_ctl = gaps(tf32, x_tf32)
+    check(max(gap, x_gap) <= GRAD_BAR < max(ctl, x_ctl),
+          f"{label}: card gradients against the CPU's: {gap} at {worst}, the input's {x_gap}; "
+          f"with TF32 on {ctl} at {ctl_worst}, the input's {x_ctl} (bar {GRAD_BAR} between)")
+    zeros = true_zero_leaves(module)
+    check(zeros <= set(grads), f"{label}: true-zero leaves {sorted(zeros - set(grads))}")
+    zero = [n for n, g in grads.items() if n not in zeros and not bool(g.abs().max() > 0)]
+    check(not zero, f"{label}: zero gradients {zero}")
+    rest = [n for n in grads if n not in zeros]
+    smallest = min(rest, key=lambda n: float(grads[n].abs().max()))
+    noise = ", ".join(f"{n} {float(grads[n].abs().max()):.3e}" for n in sorted(zeros))
+    return (f"{len(grads)} parameter gradients finite; against the CPU's, max abs / max(largest "
+            f"|g|, 1) ({scale:.3e}) {gap:.3e} ({worst}), the input's {x_gap:.3e}; with TF32 on "
+            f"(the control) {ctl:.3e} ({ctl_worst}), the input's {x_ctl:.3e} (bar {GRAD_BAR}); "
+            f"{len(rest)} nonzero (smallest max |g| {float(grads[smallest].abs().max()):.3e}, "
+            f"{smallest}); {len(zeros)} true-zero Dense biases before a batch-statistics norm, "
+            f"max |g| on the card: {noise}")
+
+
+def dist_mode_phase(ctx, grids, path_launches: dict) -> None:
+    """Phase 33 (a): dist_mode ProjectPointNet and ProjSetUpconv at the
+    shipped geometries."""
+    import copy
+
+    import torch
+
+    from i2pnet_tpu_torch.models import init_random_
+    from i2pnet_tpu_torch.nn.proj_backbone import ProjectPointNet, ProjSetUpconv
+    from i2pnet_tpu_torch.ops import select_cuda
+    from i2pnet_tpu_torch.ops.projection import strided_downsample
+
+    cfg, raw_grid, xyz_grid, norm_grid = grids
+    level = dict(out_h=cfg.lidar_Hs[0], out_w=cfg.lidar_Ws[0], stride_h=cfg.stride_Hs[0],
+                 stride_w=cfg.stride_Ws[0], kernel_size=tuple(cfg.kernel_sizes[0]),
+                 nsample=cfg.lidar_group_samples[0], distance=cfg.down_conv_dis[0],
+                 mlp=tuple(cfg.lidar_encoder_mlps[0]))
+    check(level == DIST_LEVEL, f"phase 33: lidar_lv1 geometry {level}")
+    gen = torch.Generator().manual_seed(SEED + 33)
+    f32 = init_random_(ProjectPointNet(in_channels=1, **level), gen)
+    bf16 = ProjectPointNet(in_channels=1, dtype=torch.bfloat16, **level)
+    bf16.load_state_dict(f32.state_dict())
+    f32, bf16 = f32.to(ctx.dev).eval(), bf16.to(ctx.dev).eval()
+    inputs = (raw_grid, xyz_grid, norm_grid)
+    dist = {"dist_mode": True}
+    with torch.no_grad():
+        reset_counts()
+        with Captures([ctx.select]) as caps:
+            out = bf16(*inputs, **dist)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        path_launches["dist_mode_dense_eval"] = counts
+        print(f"phase 33 dist_mode lidar_lv1 (B={BATCH}, 64x1800 -> 16x225, kernel (9, 15), K=32) "
+              f"bf16 eval: launches {compact(counts)} on {ctx.card}")
+        check(counts == DIST_LAUNCHES, f"phase 33 dist_mode launches {counts}")
+        feat = out[2]
+        check(tuple(feat.shape) == (BATCH, 16, 225, 32) and bool(torch.isfinite(feat).all()),
+              f"phase 33 dist_mode: {tuple(feat.shape)}, finite {bool(torch.isfinite(feat).all())}")
+        eval_kernel_error("select", select_cuda.selection_multiplicity_plain, caps["select"].calls)
+        bf16_ms, spread = windows_ms(lambda: bf16(*inputs, **dist))
+        dense = f32(*inputs, **dist)[2]
+        os.environ["I2PNET_PROJ_DENSE_EVAL"] = "0"
+        try:
+            gathered = f32(*inputs, **dist)[2]
+            f32_gathered_ms, _ = windows_ms(lambda: f32(*inputs, **dist))
+        finally:
+            del os.environ["I2PNET_PROJ_DENSE_EVAL"]
+        f32_dense_ms, _ = windows_ms(lambda: f32(*inputs, **dist))
+    gap = float((dense - gathered).abs().max())
+    check(torch.allclose(dense, gathered, rtol=DENSE_BAR, atol=DENSE_BAR),
+          f"phase 33 dist_mode: f32 dense against gathered max abs {gap}")
+    bf_gap = float((feat.float() - dense).abs().max())
+    check(bf_gap <= BF16_BAR * float(dense.abs().max()), f"phase 33 dist_mode bf16: {bf_gap}")
+    print(f"phase 33 dist_mode lidar_lv1: f32 dense against f32 gathered max abs {gap:.3e} "
+          f"(rtol = atol = {DENSE_BAR}; max |out| {float(dense.abs().max()):.3f}); bf16 dense "
+          f"against f32 {bf_gap:.3e}; eager ms a forward: bf16 dense {bf16_ms:.3f} (spread "
+          f"{spread:.1f}%), f32 dense {f32_dense_ms:.3f}, f32 gathered {f32_gathered_ms:.3f} on "
+          f"{ctx.card}")
+    print(f"phase 33 dist_mode lidar_lv1 train (gathered, f32): "
+          f"{grads_checked(f32, inputs, dist, 'phase 33 dist_mode level')} on {ctx.card}")
+
+    # the first upconv: fine 4x57 from coarse 4x29, the model's widths
+    up = dict(out_h=cfg.lidar_Hs[2], out_w=cfg.lidar_Ws[2], stride_h=cfg.stride_Hs[3],
+              stride_w=cfg.stride_Ws[3], kernel_size=tuple(cfg.up_conv_kernel_size[0]),
+              nsample=cfg.setupconv_nsamples[0], distance=cfg.up_conv_dis[0],
+              mlp=tuple(cfg.setupconv_mlps[0][0]), mlp2=tuple(cfg.setupconv_mlps[0][1]))
+    check(up == DIST_UPCONV, f"phase 33: first upconv geometry {up}")
+    raws, xyzs = [raw_grid], [xyz_grid]
+    for i in range(4):
+        args = (cfg.lidar_Hs[i], cfg.lidar_Ws[i], cfg.stride_Hs[i], cfg.stride_Ws[i])
+        raws.append(strided_downsample(raws[-1], *args))
+        xyzs.append(strided_downsample(xyzs[-1], *args))
+    C3, F2 = cfg.lidar_encoder_mlps[2][-1], cfg.flow_predictor_mlps[0][-1]
+    feat1 = torch.randn(BATCH, 4, 57, C3, generator=gen)
+    feat2 = torch.randn(BATCH, 4, 29, F2, generator=gen)
+    upconv = init_random_(ProjSetUpconv(feat2_channels=F2, feat1_channels=C3, dist_mode=True,
+                                        **up), gen).eval()
+    up_bf16 = ProjSetUpconv(feat2_channels=F2, feat1_channels=C3, dist_mode=True,
+                            dtype=torch.bfloat16, **up)
+    up_bf16.load_state_dict(upconv.state_dict())
+    up_inputs = [raws[3], raws[4], xyzs[3], xyzs[4]]
+    with torch.no_grad():
+        ref = upconv(*[a.cpu() for a in up_inputs], feat1, feat2, **dist)
+        card_up = copy.deepcopy(upconv).to(ctx.dev)
+        got = card_up(*up_inputs, feat1.to(ctx.dev), feat2.to(ctx.dev), **dist)
+        got_bf16 = up_bf16.to(ctx.dev).eval()(*up_inputs, feat1.to(ctx.dev), feat2.to(ctx.dev),
+                                                **dist)
+        with tf32_on():
+            got_tf32 = card_up(*up_inputs, feat1.to(ctx.dev), feat2.to(ctx.dev), **dist)
+    scale = max(float(ref.abs().max()), 1.0)
+    up_gap = float((got.cpu() - ref).abs().max()) / scale
+    up_tf32 = float((got_tf32.cpu() - ref).abs().max()) / scale
+    up_bf = float((got_bf16.float() - got).abs().max()) / scale
+    check(tuple(got.shape) == (BATCH, 4 * 57, 64) and up_gap <= CARD_CPU_BAR < up_tf32
+          and up_bf <= BF16_BAR and bool(torch.isfinite(got_bf16).all()),
+          f"phase 33 dist_mode upconv: shape {tuple(got.shape)}, card against CPU {up_gap}, "
+          f"with TF32 on {up_tf32} (bar {CARD_CPU_BAR} between them), bf16 {up_bf}")
+    trained = grads_checked(card_up, up_inputs + [feat1.to(ctx.dev), feat2.to(ctx.dev)], dist,
+                            "phase 33 dist_mode upconv")
+    print(f"phase 33 dist_mode upconv (4x57 from 4x29, kernel (5, 9), K=8, widths {F2} + "
+          f"{C3}): f32 on the card against the CPU, max abs / max(|ref|, 1) ({scale:.3f}): "
+          f"{up_gap:.3e} with TF32 off, {up_tf32:.3e} with TF32 on (the control; bar "
+          f"{CARD_CPU_BAR}); bf16 against f32 {up_bf:.3e}; train (f32): {trained} on {ctx.card}")
+
+
+def init_resnet_(model, gen):
+    """Seeded weights for the ResNet encoder: He-normal convolutions (no
+    biases), BatchNorm affines and running statistics near their neutral
+    values, as ``init_random_`` draws them, on the CPU in module order."""
+    import torch
+
+    from i2pnet_tpu_torch.nn.layers import BatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+            elif isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    return model
+
+
+def resnet_phase(ctx) -> None:
+    """Phase 33 (b): ResNet-34 at B=8, 384x1280: the card's f32 eval output
+    against the CPU's with TF32 off and on (the control), bf16 against f32,
+    eager and graph-replayed forwards, a train step's ms and peak memory, in
+    both dtypes."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from i2pnet_tpu_torch.nn import ResNetEncoder
+
+    gen = torch.Generator().manual_seed(SEED + 34)
+    model = init_resnet_(ResNetEncoder(), gen).eval()
+    x_cpu = torch.randn(BATCH, IMG_H, IMG_W, 3, generator=gen)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = model(x_cpu)
+    cpu_s = time.perf_counter() - t0
+    x = x_cpu.to(ctx.dev)
+    models = {"f32": copy.deepcopy(model).to(ctx.dev).eval()}
+    models["bf16"] = ResNetEncoder(dtype=torch.bfloat16)
+    models["bf16"].load_state_dict(model.state_dict())
+    models["bf16"] = models["bf16"].to(ctx.dev).eval()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        outs = {"f32": models["f32"](x)}
+    flops = counter.get_total_flops()
+    with torch.no_grad():
+        outs["bf16"] = models["bf16"](x)
+        with tf32_on():
+            tf32 = models["f32"](x)
+    torch.cuda.synchronize()
+    shapes = [tuple(o.shape) for o in outs["f32"]]
+    check(shapes == [(BATCH, -(-IMG_H // s), -(-IMG_W // s), c)
+                     for s, c in ((8, 128), (16, 256), (32, 512))],
+          f"phase 33 ResNet-34 pyramid {shapes}")
+    gaps = []
+    for r, g, c, b in zip(ref, outs["f32"], tf32, outs["bf16"]):
+        scale = max(float(r.abs().max()), 1.0)
+        gaps.append([float((g.cpu() - r).abs().max()) / scale,
+                     float((c.cpu() - r).abs().max()) / scale,
+                     float((b.float() - g).abs().max()) / scale])
+        check(bool(torch.isfinite(b).all()), "phase 33 ResNet-34 bf16 output not finite")
+    check(all(f32 <= CARD_CPU_BAR < on and bf <= BF16_BAR for f32, on, bf in gaps),
+          f"phase 33 ResNet-34: (card f32 against CPU f32, the same with TF32 on, bf16 against "
+          f"f32) / max(|ref|, 1) {gaps}")
+    print(f"phase 33 ResNet-34 (B={BATCH}, {IMG_H}x{IMG_W}): C3/C4/C5 {shapes}; card f32 eval "
+          f"against the CPU's, max abs / max(|ref|, 1): "
+          f"{', '.join(f'{g[0]:.3e}' for g in gaps)} with TF32 off, "
+          f"{', '.join(f'{g[1]:.3e}' for g in gaps)} with TF32 on (the control; bar "
+          f"{CARD_CPU_BAR} between them); bf16 against f32: "
+          f"{', '.join(f'{g[2]:.3e}' for g in gaps)} (bar {BF16_BAR}); the CPU forward "
+          f"{cpu_s:.1f} s; {flops / 1e12:.4f} TFLOP a forward (FlopCounterMode) on {ctx.card}")
+    for name in ("bf16", "f32"):
+        m = models[name]
+        peak = BF16_FLOPS if name == "bf16" else F32_FLOPS
+        with torch.no_grad():
+            eager_ms, spread = windows_ms(lambda: m(x))
+            graph_ms = cuda_ms(graph_of(lambda: m(x)).replay, ITERS)
+        cot = [torch.randn(o.shape, generator=torch.Generator(ctx.dev).manual_seed(SEED),
+                           device=ctx.dev) for o in outs["f32"]]
+        m.train()
+        buffers0 = {n: b.clone() for n, b in m.named_buffers()}
+
+        def step():
+            m.zero_grad(set_to_none=True)
+            out = m(x)
+            sum((o * c).sum() for o, c in zip(out, cot)).backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        bad = [n for n, p in m.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        moved = all(not torch.equal(b, buffers0[n]) for n, b in m.named_buffers())
+        check(not bad and moved, f"phase 33 ResNet-34 {name} train: gradients {bad[:5]}, "
+                                 f"statistics moved {moved}")
+        train_ms, train_spread = windows_ms(step, TRAIN_ITERS)
+        m.eval()
+        bound_ms = flops / peak * 1e3
+        print(f"phase 33 ResNet-34 {name} (B={BATCH}, {IMG_H}x{IMG_W}): eval forward "
+              f"{eager_ms:.3f} ms eager (median of {WINDOWS}x{ITERS}, spread {spread:.1f}%), "
+              f"{graph_ms:.3f} ms under CUDA-graph replay, bound {bound_ms:.3f} ms "
+              f"(operations at {peak / 1e12:.0f} TFLOP/s; {100.0 * bound_ms / graph_ms:.1f}% "
+              f"of it replayed); train forward + backward {train_ms:.3f} ms (median of "
+              f"{WINDOWS}x{TRAIN_ITERS}, spread {train_spread:.1f}%), every gradient finite and "
+              f"every running statistic moved, peak memory {peak_gib:.2f} GiB on {ctx.card}")
+
+
+@contextlib.contextmanager
+def grid_builder(name: str):
+    """The grid select's candidate builder inside the block: "default"
+    (``window_candidates`` at every geometry) or "im2col" (where the
+    geometry allows it)."""
+    from i2pnet_tpu_torch.ops import projection as P
+
+    saved = P._patches_eligible
+    if name == "default":
+        P._patches_eligible = lambda *args: False
+    try:
+        yield
+    finally:
+        P._patches_eligible = saved
+
+
+BUILDERS = ("default", "im2col", "im2col", "default")
+# a grid's gradient through the two builders, over its max |g|: f32 sums
+# in another order, bf16 two units in the last place
+SITE_GRAD_BARS = {"float32": 1e-5, "bfloat16": 2.0**-6}
+
+
+def grid_ops_phase(ctx, grids) -> None:
+    """Phase 33 (c): the generic window select and gather_grid against the
+    grid select at the lidar_lv1 geometry, and the im2col candidate builder
+    against the default, bit for bit and timed."""
+    import torch
+
+    from i2pnet_tpu_torch.ops import projection as P
+
+    cfg, raw_grid, xyz_grid, _ = grids
+    out_h, out_w, qs = cfg.lidar_Hs[0], cfg.lidar_Ws[0], (cfg.stride_Hs[0], cfg.stride_Ws[0])
+    kernel, K, dist = tuple(cfg.kernel_sizes[0]), cfg.lidar_group_samples[0], cfg.down_conv_dis[0]
+    wargs = dict(out_h=out_h, out_w=out_w, qstride=qs, stride=(1, 1), kernel_size=kernel,
+                 shift=True)
+    feats = (raw_grid, xyz_grid)
+
+    def grid_select():
+        args, mask = P.window_neighbor_select_grid(xyz_grid, xyz_grid, out_h, out_w, qs, kernel,
+                                                   K, (1, 1), dist, True, True)
+        return [args, mask] + [P.select_window_features(g, args, **wargs) for g in feats]
+
+    def generic_select():
+        idx = P.strided_grid_indices(BATCH, out_h, out_w, *qs, device=ctx.dev)
+        h, w, mask = P.window_neighbor_select(xyz_grid, xyz_grid, idx, kernel, K, (1, 1), dist,
+                                              True, True)
+        return [mask] + [P.gather_grid(g, h, w) for g in feats]
+
+    runs, ms = {}, {}
+    with torch.no_grad():
+        generic = generic_select()
+        ms["generic"] = replay_ms(generic_select)
+        for name in ("default", "im2col"):
+            with grid_builder(name):
+                check(P._patches_eligible(out_h, out_w, qs, (1, 1), *xyz_grid.shape[1:3], True)
+                      == (name == "im2col"), f"phase 33: the im2col builder's gate ({name})")
+                runs[name] = grid_select()
+                ms[name] = replay_ms(grid_select)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(generic, runs["default"][1:])),
+          "phase 33: the generic select and gather_grid differ from the grid select")
+    check(all(torch.equal(a, b) for a, b in zip(runs["default"], runs["im2col"])),
+          "phase 33: the im2col builder differs from the default builder")
+    hits = float(runs["default"][1].mean())
+    print(f"phase 33 grid ops at lidar_lv1 (B={BATCH}, 64x1800 -> {out_h}x{out_w}, kernel "
+          f"{kernel}, K={K}, copy): window_neighbor_select + gather_grid at strided_grid_indices "
+          f"equal to window_neighbor_select_grid + select_window_features (masks, and the raw and "
+          f"warped grids' features in every slot; mask mean {hits:.4f}); the im2col builder's "
+          f"args, masks and features bit-identical to the default's on {ctx.card}")
+    print(f"phase 33 grid ops, select and two feature gathers (graph replay): default builder "
+          f"{ms['default']:.4f} ms, im2col builder {ms['im2col']:.4f} ms, generic select + "
+          f"gather_grid {ms['generic']:.4f} ms on {ctx.card}")
+
+
+def builders_on_proj_model(ctx) -> None:
+    """Phase 33 (d): the two candidate builders on the shipped proj model
+    in bf16 at B=8 on phase 10's inputs. Every ``select_window_features``
+    call site of a train step and an eval forward, alone: the features equal
+    under both builders and, where the grid takes a gradient, its gradient
+    within ``SITE_GRAD_BARS`` (repeated slots summed in another order); the
+    forward replayed and the forward and backward replayed, timed with
+    each. Then the whole eval forward (replayed) and train step (eager)
+    under each: outputs and loss bit-identical, the gradients' largest gaps
+    printed, timed in the order ``BUILDERS``. im2col is the port's builder
+    wherever the geometry allows, on these readings."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import projection as P
+    from i2pnet_tpu_torch.train import create_train_state, make_train_step_proj
+
+    pcfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    pinputs = make_proj_inputs(ctx.dev)
+    rgb, lidar, raw, k = pinputs
+    batch = {"rgb": rgb, "lidar": lidar, "raw_xyz": raw, "intrinsic": k,
+             "decalib_q_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=ctx.dev).repeat(BATCH, 1),
+             "decalib_t_gt": torch.zeros(BATCH, 3, device=ctx.dev)}
+
+    def train_setup():
+        m = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED))
+        st = create_train_state(m, steps_per_epoch=100)
+        return m, st, make_train_step_proj(m, pcfg), torch.Generator(ctx.dev).manual_seed(SEED)
+
+    sites, plain = {}, P.select_window_features
+
+    def record(feat_grid, args, **wargs):
+        key = (tuple(feat_grid.shape), str(feat_grid.dtype).split(".")[-1],
+               feat_grid.requires_grad, wargs["out_h"], wargs["out_w"], tuple(wargs["qstride"]),
+               tuple(wargs["stride"]), tuple(wargs["kernel_size"]))
+        sites.setdefault(key, (args.detach().clone(), dict(wargs)))
+        return plain(feat_grid, args, **wargs)
+
+    steps = {}
+    for name in ("default", "im2col"):
+        m, st, step, gen = train_setup()
+        with grid_builder(name):
+            P.select_window_features = record
+            try:
+                metrics = step(st, batch, gen)
+            finally:
+                P.select_window_features = plain
+        torch.cuda.synchronize()
+        steps[name] = [metrics["loss"].clone()] + [p.grad.clone() for p in m.parameters()]
+        names, zeros = [n for n, _ in m.named_parameters()], true_zero_leaves(m)
+        del m, st, step
+    check(torch.equal(steps["default"][0], steps["im2col"][0])
+          and all(bool(torch.isfinite(g).all()) for g in steps["im2col"][1:]),
+          "phase 33: a proj train step's loss differs between the builders, or a gradient is "
+          "not finite")
+    largest = max(float(g.abs().max()) for g in steps["default"][1:])
+    grad_gaps = {n: (float((a - b).abs().max()), float(a.abs().max()))
+                 for n, a, b in zip(names, steps["default"][1:], steps["im2col"][1:])}
+    n_equal = sum(g == 0.0 for g, _ in grad_gaps.values())
+
+    def worst(keys):
+        k = max(keys, key=lambda n: grad_gaps[n][0] / max(grad_gaps[n][1], 1e-2 * largest))
+        gap, leaf = grad_gaps[k]
+        return f"{gap:.3e} at {k} (its max |g| {leaf:.3e})"
+
+    print(f"phase 33 builders, a proj train step: loss bit-identical; {n_equal} of "
+          f"{len(grad_gaps)} gradients bit-identical; largest |g| {largest:.3e}; the largest gap "
+          f"over a leaf's max |g| (at least 1e-2 of the largest): "
+          f"{worst([n for n in grad_gaps if n not in zeros])}; over the true-zero leaves "
+          f"{worst([n for n in grad_gaps if n in zeros])} on {ctx.card}")
+    model = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED)).eval()
+    outs = {}
+    with torch.no_grad():
+        for name in ("default", "im2col"):
+            with grid_builder(name):
+                P.select_window_features = record
+                try:
+                    outs[name] = [o for o in tree_leaves(model(*pinputs))
+                                  if isinstance(o, torch.Tensor)]
+                finally:
+                    P.select_window_features = plain
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(outs["default"], outs["im2col"])),
+          "phase 33: the proj eval forward differs between the builders")
+
+    totals = {name: [0.0, 0.0] for name in ("default", "im2col")}
+    gen = torch.Generator(ctx.dev).manual_seed(SEED + 35)
+    for (shape, dtype, grad, out_h, out_w, qs, stride, kernel), (args, wargs) in sites.items():
+        h2, w2 = shape[1:3]
+        with grid_builder("im2col"):
+            eligible = P._patches_eligible(out_h, out_w, qs, stride, h2, w2, wargs["shift"])
+        if not eligible:
+            print(f"phase 33 builders, site grid {shape} {dtype} -> {out_h}x{out_w}, qstride "
+                  f"{qs}, stride {stride}, kernel {kernel}: the default builder alone (stride or "
+                  f"geometry) on {ctx.card}")
+            continue
+        grid = torch.randn(shape, generator=gen, device=ctx.dev).to(getattr(torch, dtype))
+        grid.requires_grad_(grad)
+        cot = torch.randn(tuple(args.shape) + shape[-1:], generator=gen, device=ctx.dev)
+        fwd = {name: [] for name in totals}
+        bwd = {name: [] for name in totals}
+        feats = {}
+        for name in BUILDERS:
+            with grid_builder(name):
+                with torch.no_grad():
+                    feats[name] = plain(grid, args, **wargs)
+                    fwd[name].append(replay_ms(lambda: plain(grid, args, **wargs)))
+                if grad:
+                    bwd[name].append(replay_ms(lambda: torch.autograd.grad(
+                        (plain(grid, args, **wargs).float() * cot).sum(), grid)))
+        check(torch.equal(feats["default"], feats["im2col"]),
+              f"phase 33 builders: site {shape} features differ")
+        grad_gap = None
+        if grad:
+            got = {}
+            for name in ("default", "im2col"):
+                with grid_builder(name):
+                    got[name] = torch.autograd.grad(
+                        (plain(grid, args, **wargs).float() * cot).sum(), grid)[0].float()
+            grad_gap = float((got["im2col"] - got["default"]).abs().max()) / float(
+                got["default"].abs().max())
+            check(grad_gap <= SITE_GRAD_BARS[dtype],
+                  f"phase 33 builders: site {shape} {dtype} gradients {grad_gap}")
+        for name in totals:
+            totals[name][0] += statistics.median(fwd[name])
+            totals[name][1] += statistics.median(bwd[name]) if grad else 0.0
+        print(f"phase 33 builders, site grid {shape} {dtype} -> {out_h}x{out_w}, qstride {qs}, "
+              f"kernel {kernel}, K={args.shape[-1]}: forward (graph replay) default "
+              f"{'/'.join(f'{t:.4f}' for t in fwd['default'])} ms, im2col "
+              f"{'/'.join(f'{t:.4f}' for t in fwd['im2col'])}"
+              + (f"; forward + backward (graph replay) default "
+                 f"{'/'.join(f'{t:.4f}' for t in bwd['default'])} ms, im2col "
+                 f"{'/'.join(f'{t:.4f}' for t in bwd['im2col'])}; the grid's gradients "
+                 f"{grad_gap:.3e} of max |g| apart (bar {SITE_GRAD_BARS[dtype]:.3e})" if grad
+                 else "")
+              + f"; features equal on {ctx.card}")
+    print(f"phase 33 builders, the eligible sites summed (medians): forward default "
+          f"{totals['default'][0]:.4f} ms, im2col {totals['im2col'][0]:.4f}; forward + backward "
+          f"default {totals['default'][1]:.4f} ms, im2col {totals['im2col'][1]:.4f} on {ctx.card}")
+
+    fwd_ms = {name: [] for name in totals}
+    step_ms = {name: [] for name in totals}
+    m, st, step, sgen = train_setup()
+    with torch.no_grad():
+        for name in BUILDERS:
+            with grid_builder(name):
+                fwd_ms[name].append(replay_ms(lambda: model(*pinputs)))
+    for name in BUILDERS:
+        with grid_builder(name):
+            step(st, batch, sgen)
+            step_ms[name].append(windows_ms(lambda: step(st, batch, sgen), TRAIN_ITERS)[0])
+    print(f"phase 33 builders on the shipped proj model (bf16, B={BATCH}), in the order "
+          f"{'/'.join(BUILDERS)}: eval forward (graph replay) default "
+          f"{'/'.join(f'{t:.3f}' for t in fwd_ms['default'])} ms, im2col "
+          f"{'/'.join(f'{t:.3f}' for t in fwd_ms['im2col'])}; train step (eager, median of "
+          f"{WINDOWS}x{TRAIN_ITERS}) default {'/'.join(f'{t:.3f}' for t in step_ms['default'])} "
+          f"ms, im2col {'/'.join(f'{t:.3f}' for t in step_ms['im2col'])}; outputs and loss "
+          f"bit-identical on {ctx.card}")
+
+
+def code_no_model_runs_phase(ctx, path_launches: dict) -> None:
+    """Phase 33: (a) dist_mode, (b) ResNet-34, (c) the grid ops, (d) the
+    candidate builders on the proj model."""
+    t0 = time.perf_counter()
+    grids = proj_range_images(ctx.dev)
+    dist_mode_phase(ctx, grids, path_launches)
+    t1 = time.perf_counter()
+    resnet_phase(ctx)
+    t2 = time.perf_counter()
+    grid_ops_phase(ctx, grids)
+    del grids
+    t3 = time.perf_counter()
+    builders_on_proj_model(ctx)
+    print(f"phase 33: dist_mode {t1 - t0:.1f} s, ResNet-34 {t2 - t1:.1f} s, grid ops "
+          f"{t3 - t2:.1f} s, the builders on the proj model {time.perf_counter() - t3:.1f} s on "
+          f"{ctx.card}")
+
+
 def eval_kernel_table():
     """The eval kernels and the window select, as ``kernel_table`` gives
     them, from the op library's modules alone (phase 31's serving process
@@ -4231,10 +4899,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
 
-    if "--phase" in sys.argv[1:]:  # one of phases 30-32 alone, after the build
+    if "--phase" in sys.argv[1:]:  # one of phases 30-33 alone, after the build
         only = sys.argv[sys.argv.index("--phase") + 1:][:1]
         phases = {"30": dp_phase, "31": export_phase,
-                  "32": lambda ctx, work, _: rehearsal_phase(ctx, work)}
+                  "32": lambda ctx, work, _: rehearsal_phase(ctx, work),
+                  "33": lambda ctx, work, pl: code_no_model_runs_phase(ctx, pl)}
         check(len(only) == 1 and only[0] in phases,
               f"--phase {only}: only phases {sorted(phases)} run alone")
         import shutil
@@ -4835,6 +5504,11 @@ def main() -> int:
         print(f"phase 32: {time.perf_counter() - t0:.1f} s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # --- phase 33: the code that no model path runs, at full width
+    t0 = time.perf_counter()
+    code_no_model_runs_phase(ctx, path_launches)
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s on {card}")
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

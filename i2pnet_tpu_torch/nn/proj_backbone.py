@@ -43,8 +43,13 @@ class ProjectPointNet(nn.Module):
     """Strided-grid downsampling + windowed-neighbour PointNet.
 
     ``in_channels`` is the grouped feature width: 10 (+ the feature width
-    with ``using_intens``) in center mode, else 3 + the feature width. center_mode builds [diff(3), center(3, warped frame),
-    grouped(3), dist(1)]; otherwise [diff(3), grouped_points(C)].
+    with ``using_intens``) in center mode, 1 in dist mode, else 3 + the
+    feature width. center_mode builds [diff(3), center(3, warped frame),
+    grouped(3), dist(1)]; dist_mode the distance to the centre alone (the
+    reference's distance-only backbone); otherwise [diff(3),
+    grouped_points(C)]. The modes are call-time flags, as in the JAX
+    module; a call whose modes need another width than the one built
+    raises ``ValueError``.
     """
 
     def __init__(self, out_h: int, out_w: int, stride_h: int, stride_w: int,
@@ -60,11 +65,16 @@ class ProjectPointNet(nn.Module):
         self.mlp_convs = PointwiseMLP(in_channels, mlp, use_bn=use_bn, activation="relu",
                                       dtype=dtype, bn_stats=False)
 
-    def forward(self, xyz_raw, xyz, feature, center_mode: bool = False,
+    def forward(self, xyz_raw, xyz, feature, center_mode: bool = False, dist_mode: bool = False,
                 using_intens: bool = False, raw_feat_point: bool = True):
         """xyz_raw, xyz (B, H, W, 3); feature (B, H, W, C) -> (new_xyz_raw,
         new_xyz (B, out_h, out_w, 3), new_feat (B, out_h, out_w, mlp[-1]))."""
-        modes = dict(center_mode=center_mode, using_intens=using_intens,
+        C = feature.shape[-1]
+        width = (10 + C * using_intens) if center_mode else 1 if dist_mode else 3 + C
+        if self.mlp_convs.layers and width != self.mlp_convs.layers[0].Dense_0.in_features:
+            raise ValueError(f"the call's modes group {width} channels; the level was built "
+                             f"for {self.mlp_convs.layers[0].Dense_0.in_features}")
+        modes = dict(center_mode=center_mode, dist_mode=dist_mode, using_intens=using_intens,
                      raw_feat_point=raw_feat_point)
         if self.use_bn and not self.training and eval_route("I2PNET_PROJ_DENSE_EVAL"):
             layers = [(c.Dense_0.weight, c.Dense_0.bias, c.BatchStatsNorm_0.weight,
@@ -77,7 +87,8 @@ class ProjectPointNet(nn.Module):
             )
         return self._gathered(xyz_raw, xyz, feature, **modes)
 
-    def _gathered(self, xyz_raw, xyz, feature, center_mode, using_intens, raw_feat_point):
+    def _gathered(self, xyz_raw, xyz, feature, center_mode, dist_mode, using_intens,
+                  raw_feat_point):
         B = xyz.shape[0]
         out_h, out_w = self.out_h, self.out_w
         N = out_h * out_w
@@ -102,6 +113,8 @@ class ProjectPointNet(nn.Module):
             if using_intens:
                 parts.append(grouped_points)
             new_points = cat(parts, -1)
+        elif dist_mode:
+            new_points = safe_norm(grouped_norm, dim=-1, keepdim=True)
         else:
             new_points = cat([grouped_norm, grouped_points], -1)
         new_points = self.mlp_convs(new_points)
@@ -112,29 +125,37 @@ class ProjectPointNet(nn.Module):
 class ProjSetUpconv(nn.Module):
     """Windowed coarse -> fine feature upsampling. ``feat2_channels`` and
     ``feat1_channels`` are the coarse and fine feature widths (feat1 None
-    means 0); the output is (B, out_h*out_w, out_channels)."""
+    means 0); the output is (B, out_h*out_w, out_channels). The geometry
+    beside each neighbour's features is its offset from the fine point (3
+    channels), or with ``dist_mode`` its distance (1, the reference's
+    distance-only backbone). The width is fixed here; the call's
+    ``dist_mode`` flag, as the JAX module's, must match it."""
 
     def __init__(self, out_h: int, out_w: int, stride_h: int, stride_w: int,
                  kernel_size: Tuple[int, int], nsample: int, distance: float,
                  mlp: Sequence[int], mlp2: Sequence[int], feat2_channels: int,
                  feat1_channels: int, use_trans: bool = True, use_bn: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dist_mode: bool = False):
         super().__init__()
         self.out_h, self.out_w = out_h, out_w
         self.stride = (stride_h, stride_w)
         self.kernel_size = tuple(kernel_size)
         self.nsample, self.distance = nsample, distance
-        self.use_trans = use_trans
-        width = feat2_channels + 3
+        self.use_trans, self.dist_mode = use_trans, dist_mode
+        width = feat2_channels + (1 if dist_mode else 3)
         kw = dict(use_bn=use_bn, dtype=dtype, bn_stats=False)
         self.mlp_conv = PointwiseMLP(width, mlp, **kw) if mlp else None
         width = (mlp[-1] if mlp else width) + feat1_channels
         self.mlp2_conv = PointwiseMLP(width, mlp2, **kw) if mlp2 else None
         self.out_channels = mlp2[-1] if mlp2 else width
 
-    def forward(self, xyz1_raw, xyz2_raw, xyz1, xyz2, feat1, feat2, raw_feat_point: bool = True):
+    def forward(self, xyz1_raw, xyz2_raw, xyz1, xyz2, feat1, feat2, raw_feat_point: bool = True,
+                dist_mode: bool = False):
         """xyz1* (B, out_h, out_w, 3) fine; xyz2* (B, h2, w2, 3) coarse; feat1
         (B, out_h, out_w, C1) or None; feat2 (B, h2, w2, C2)."""
+        if dist_mode != self.dist_mode:
+            raise ValueError(f"dist_mode={dist_mode}, but the module was built with "
+                             f"dist_mode={self.dist_mode}")
         B = xyz1.shape[0]
         N = self.out_h * self.out_w
         xyz1_pr = xyz1 if self.use_trans else xyz1_raw
@@ -148,7 +169,8 @@ class ProjSetUpconv(nn.Module):
         src2 = xyz2_raw if raw_feat_point else xyz2
         ctr1 = xyz1_raw if raw_feat_point else xyz1
         grouped_xyz, grouped_feat2 = select_window_features_multi([src2, feat2], args, **wargs)
-        net = cat([grouped_feat2, grouped_xyz - ctr1.reshape(B, N, 1, 3)], 3)
+        diff = grouped_xyz - ctr1.reshape(B, N, 1, 3)
+        net = cat([grouped_feat2, safe_norm(diff, dim=-1, keepdim=True) if dist_mode else diff], 3)
         if self.mlp_conv is not None:
             net = self.mlp_conv(net)
         feat1_new = torch.amax(net, dim=2).reshape(B, self.out_h, self.out_w, -1)

@@ -48,7 +48,8 @@ def dense_pointnet_eval(xyz_raw: torch.Tensor, xyz: torch.Tensor, feature: torch
                                                torch.Tensor]],
                         *, out_h: int, out_w: int, stride_h: int, stride_w: int,
                         kernel_size: Tuple[int, int], nsample: int, distance: float,
-                        center_mode: bool = False, using_intens: bool = False,
+                        center_mode: bool = False, dist_mode: bool = False,
+                        using_intens: bool = False,
                         raw_feat_point: bool = True,
                         use_trans: bool = True, dtype: Optional[torch.dtype] = None,
                         eps: float = BN_EPS):
@@ -57,7 +58,9 @@ def dense_pointnet_eval(xyz_raw: torch.Tensor, xyz: torch.Tensor, feature: torch
     ``layers``: per MLP layer (Dense weight (out, in), Dense bias, norm
     scale, norm bias). Each layer is Dense (in ``dtype`` when given, its
     result then taken to f32) -> m-weighted two-pass batch statistics and
-    normalisation in f32 -> ReLU. Returns (new_xyz_raw, new_xyz, new_feat
+    normalisation in f32 -> ReLU. The grouped features are those of the
+    module's modes: center_mode's ten, ``dist_mode``'s one (the distance to
+    the centre) or [diff, feature]. Returns (new_xyz_raw, new_xyz, new_feat
     (B, out_h, out_w, C) f32) like the module.
     """
     B = xyz.shape[0]
@@ -82,6 +85,8 @@ def dense_pointnet_eval(xyz_raw: torch.Tensor, xyz: torch.Tensor, feature: torch
         if using_intens:
             parts.append(_candidates(feature, wargs))
         x = torch.cat(parts, dim=-1)
+    elif dist_mode:  # every slot's distance to the centre, the sentinel's too
+        x = safe_norm(grouped_norm, dim=-1, keepdim=True)
     else:
         x = torch.cat([grouped_norm, _candidates(feature, wargs)], dim=-1)
 

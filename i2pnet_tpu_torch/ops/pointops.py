@@ -55,6 +55,37 @@ def knn_by_key(nsample: int, sqrdists: torch.Tensor) -> torch.Tensor:
     return torch.topk(key, nsample, dim=-1, largest=False, sorted=True).indices
 
 
+_KEY_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # exact in f32
+
+
+def _min_key(scores: torch.Tensor) -> torch.Tensor:
+    """``_order_key`` of scores (..., N) of up to f32 width, for any sign:
+    the order of ``lax.top_k`` of their negation, which sets -0.0 before
+    +0.0 (a total order) and equal values lowest index first."""
+    index = torch.arange(scores.shape[-1], device=scores.device)
+    return _order_key(scores.float(), index)
+
+
+def min_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (..., k) of the k smallest scores along the last axis,
+    smallest first, equal scores lowest index first: the contract of
+    ``lax.top_k(-scores, k)[1]``, index for index. Scores of up to f32
+    width take a top-k of ``_min_key`` (``knn_by_key``'s order); wider ones
+    a stable sort."""
+    if scores.dtype not in _KEY_DTYPES:
+        return torch.sort(scores, dim=-1, stable=True).indices[..., :k]
+    key = _min_key(scores)
+    return torch.topk(key, k, dim=-1, largest=False, sorted=True).values.bitwise_and_(0xFFFFFFFF)
+
+
+def blocked_top_k_min(scores: torch.Tensor, k: int, block: int = 1024) -> torch.Tensor:
+    """``min_k_indices``, under the JAX package's name. JAX splits long rows
+    into blocks of ``block`` for the TPU's top-k; the result is the same
+    either way, so ``block`` is taken for the signature and not used."""
+    del block
+    return min_k_indices(scores, k)
+
+
 def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """Indices (B, S, nsample) of the nearest points of xyz (B, N, C) to
     each query of new_xyz (B, S, C), nearest first and equal distances
@@ -138,6 +169,10 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B = points.shape[0]
     rows = torch.arange(B, device=points.device).view((B,) + (1,) * (idx.dim() - 1))
     return points[rows, idx]
+
+
+# the JAX package's name for the neighbour gather (the reference's group_points)
+group_points = index_points
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:

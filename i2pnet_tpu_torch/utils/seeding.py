@@ -17,3 +17,9 @@ def set_seed(seed: int = 0) -> None:
     # initialised, every card's default generator
     torch.manual_seed(seed)
 
+
+
+def worker_seed(base_seed: int, worker_id: int) -> int:
+    """A loader worker's seed derived from the run's (the reference's
+    ``seed_worker``), as the JAX package derives it."""
+    return (base_seed * 1000003 + worker_id) % (2**31 - 1)

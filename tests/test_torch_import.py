@@ -67,6 +67,12 @@ NEW = [
     "i2pnet_tpu_torch.parallel.mesh",
     # the eval kernels as torch.library ops (the serving export)
     "i2pnet_tpu_torch.ops.library",
+    # the last of the JAX package's code: the ResNet encoder (exported by
+    # nn/__init__), the generic window select and grid helpers, dist_mode,
+    # the exact k-smallest indices and worker seeds
+    "i2pnet_tpu_torch.nn",
+    "i2pnet_tpu_torch.nn.resnet",
+    "i2pnet_tpu_torch.ops.pointops",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
            "tools/synthetic_convergence_torch.py", "tools/reference_ckpt_to_torch.py",
@@ -110,5 +116,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (60 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 60
+    # the walk found the whole package (61 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 61

@@ -1,0 +1,11 @@
+"""BatchNorm, LeakyReLU and max-pool without taps (csrc/bn_pool_train.cu,
+kernel (e))."""
+
+from h100_bench.work import F32_FLOPS, bound as _bound, nbytes
+
+MODULE, FUNCTION = "i2pnet_tpu_torch.ops.conv_train_cuda", "bn_pool_fwd_notap_cuda"
+
+
+def bound(a, out):
+    return _bound(nbytes(a[0], a[1], a[2], out), 4.0 * a[0].numel() + 9.0 * out.numel(),
+                  F32_FLOPS)

@@ -27,6 +27,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from i2pnet_tpu_torch.utils.trace import span
+
 # keys the model steps consume; the rest stay host-side for eval/bookkeeping
 DEVICE_KEYS = (
     "rgb",
@@ -251,16 +253,17 @@ def _to_device(batch: dict, device: torch.device, keys=None) -> dict:
     values as they are. On the card each array is staged in pinned memory
     and copied with ``non_blocking`` on the current stream."""
     out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray) and v.dtype != object and (keys is None or k in keys):
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+    with span("i2pnet/data/to_device"):
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and v.dtype != object and (keys is None or k in keys):
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if device.type == "cuda":
+                    t = t.pin_memory().to(device, non_blocking=True)
+                else:
+                    t = t.to(device)
+                out[k] = t
             else:
-                t = t.to(device)
-            out[k] = t
-        else:
-            out[k] = v
+                out[k] = v
     return out
 
 

@@ -41,6 +41,7 @@ from i2pnet_tpu_torch.models.i2pnet import resolve_device
 from i2pnet_tpu_torch.ops import quaternion as Q
 from i2pnet_tpu_torch.parallel.mesh import Mesh, fan_out_rows, gather_rows, set_mesh
 from i2pnet_tpu_torch.train.step import make_eval_step, make_eval_step_proj
+from i2pnet_tpu_torch.utils.trace import span
 
 SECTION = "§"  # section-sign framing (ref evaluation_proj.py:145-167)
 
@@ -135,9 +136,10 @@ class Evaluator:
         batch in a debug_nans error."""
         q_acc = t_acc = None
         stage_batch = mb
-        with torch.inference_mode():
+        with span("i2pnet/eval/cascade"), torch.inference_mode():
             for si, step in enumerate(self._steps):
-                out = step(stage_batch)
+                with span(f"i2pnet/eval/stage{si}"):
+                    out = step(stage_batch)
                 if self.debug_nans:
                     self._check_finite(out, si, bi)
                 out3_s = out["out3"]

@@ -34,6 +34,7 @@ from i2pnet_tpu_torch.nn.pointnet import PointNetSetAbstraction
 from i2pnet_tpu_torch.nn.upconv import SetUpconv
 from i2pnet_tpu_torch.ops import quaternion as Q
 from i2pnet_tpu_torch.ops.pointops import index_points
+from i2pnet_tpu_torch.utils.trace import span
 
 
 def set_id_grid(h: int, w: int, batch: int, device=None) -> torch.Tensor:
@@ -160,18 +161,20 @@ class I2PNet(nn.Module):
         if cfg.raw_feat_point and raw_xyz is None:
             raw_xyz = lidar_xyz
 
-        RF3 = self.rgb_encoder(rgb_img)[-1]
+        with span("i2pnet/model/rgb_encoder"):
+            RF3 = self.rgb_encoder(rgb_img)[-1]
         h3, w3 = RF3.shape[1], RF3.shape[2]
 
         feats0 = lidar_feature
         if feats0 is None:
             feats0 = torch.zeros(B, lidar_xyz.shape[1], 3, dtype=lidar_xyz.dtype,
                                  device=lidar_xyz.device)
-        P1, LF1, fps1, P1_raw = self.lidar_lv1(lidar_xyz, feats0, feat_mode=cfg.featmode,
-                                               raw_xyz=raw_xyz)
-        P2, LF2, fps2, P2_raw = self.lidar_lv2(P1, LF1, raw_xyz=P1_raw)
-        P3, LF3, fps3, P3_raw = self.lidar_lv3(P2, LF2, raw_xyz=P2_raw)
-        P4, LF4, fps4, P4_raw = self.lidar_lv4(P3, LF3, raw_xyz=P3_raw)
+        with span("i2pnet/model/lidar_encoder"):
+            P1, LF1, fps1, P1_raw = self.lidar_lv1(lidar_xyz, feats0, feat_mode=cfg.featmode,
+                                                   raw_xyz=raw_xyz)
+            P2, LF2, fps2, P2_raw = self.lidar_lv2(P1, LF1, raw_xyz=P1_raw)
+            P3, LF3, fps3, P3_raw = self.lidar_lv3(P2, LF2, raw_xyz=P2_raw)
+            P4, LF4, fps4, P4_raw = self.lidar_lv4(P3, LF3, raw_xyz=P3_raw)
 
         calib3 = None
         if cfg.efgh:
@@ -195,7 +198,8 @@ class I2PNet(nn.Module):
             lidar_uv, lidar_z = Q.project_to_normalized_plane(P3)
         RF3_flat = RF3.reshape(B, h3 * w3, RF3.shape[-1])
 
-        concat_4 = self.cost_volume1(lidar_uv, LF3, RF3_index, RF3_flat, lidar_z)
+        with span("i2pnet/model/cost_volume"):
+            concat_4 = self.cost_volume1(lidar_uv, LF3, RF3_index, RF3_flat, lidar_z)
         _, l4_points_predict, _, _ = self.layer_idx(P3, concat_4, sample_idx=fps4, raw_xyz=P3_raw)
         l4_cost_volume_w = self.flow_predictor0(LF4, None, l4_points_predict)
 
@@ -223,7 +227,8 @@ class I2PNet(nn.Module):
             warped_uv, warped_z = Q.warp_with_calib(P3, q4, t4, calib3)
         else:
             warped_uv, warped_z = Q.warp_to_normalized_plane(P3, q4, t4)
-        concat_3 = self.cost_volume2(warped_uv, LF3, RF3_index, RF3_flat, warped_z)
+        with span("i2pnet/model/cost_volume"):
+            concat_3 = self.cost_volume2(warped_uv, LF3, RF3_index, RF3_flat, warped_z)
 
         raw = dict(raw_xyz1=P3_raw, raw_xyz2=P4_raw) if cfg.raw_feat_point else {}
         l3_w_up = self.set_upconv0_w_upsample(P3, P4, LF3, l4_cost_volume_w, **raw)

@@ -38,6 +38,7 @@ from i2pnet_tpu_torch.nn.proj_backbone import (
 )
 from i2pnet_tpu_torch.ops import quaternion as Q
 from i2pnet_tpu_torch.ops.projection import check_valid, grid_indices, spherical_project
+from i2pnet_tpu_torch.utils.trace import span
 
 FEATURE_WIDTH = 3  # the lidar_feature width (zeros when none is given)
 
@@ -124,7 +125,8 @@ class I2PNetProj(nn.Module):
         Hs, Ws = cfg.lidar_Hs, cfg.lidar_Ws
         rf = cfg.raw_feat_point
 
-        RF3 = self.rgb_encoder(rgb_img)[-1]
+        with span("i2pnet/model/rgb_encoder"):
+            RF3 = self.rgb_encoder(rgb_img)[-1]
         h3, w3 = RF3.shape[1], RF3.shape[2]
         # K^-1 in full f32, without linalg.inv's host-synchronising check
         intrinsic3 = change_intrinsic(intrinsic.float(), (h3, w3), (H, W))
@@ -141,11 +143,12 @@ class I2PNetProj(nn.Module):
             use_rank=cfg.rank, ref_pad_quirk=cfg.ref_pad_quirk,
         )
 
-        P1_raw, P1, LF1 = self.lidar_lv1(raw_grid, xyz_grid, norm_grid, center_mode=True,
-                                         using_intens=cfg.using_intens, raw_feat_point=rf)
-        P2_raw, P2, LF2 = self.lidar_lv2(P1_raw, P1, LF1, raw_feat_point=rf)
-        P3_raw, P3, LF3 = self.lidar_lv3(P2_raw, P2, LF2, raw_feat_point=rf)
-        P4_raw, P4, LF4 = self.lidar_lv4(P3_raw, P3, LF3, raw_feat_point=rf)
+        with span("i2pnet/model/lidar_encoder"):
+            P1_raw, P1, LF1 = self.lidar_lv1(raw_grid, xyz_grid, norm_grid, center_mode=True,
+                                             using_intens=cfg.using_intens, raw_feat_point=rf)
+            P2_raw, P2, LF2 = self.lidar_lv2(P1_raw, P1, LF1, raw_feat_point=rf)
+            P3_raw, P3, LF3 = self.lidar_lv3(P2_raw, P2, LF2, raw_feat_point=rf)
+            P4_raw, P4, LF4 = self.lidar_lv4(P3_raw, P3, LF3, raw_feat_point=rf)
 
         H3, W3, H4, W4 = Hs[2], Ws[2], Hs[3], Ws[3]
         P3_l4 = P3.reshape(B, H3 * W3, 3)
@@ -154,8 +157,9 @@ class I2PNetProj(nn.Module):
         lidar_z = P3_l4[:, :, 2:]
         lidar_uv = P3_l4 / (lidar_z + 1e-10)
 
-        concat_4 = self.cost_volume1(P3_raw, lidar_uv, LF3_flat, l3_idx_n2, RF3_index, RF3_flat,
-                                     lidar_z)
+        with span("i2pnet/model/cost_volume"):
+            concat_4 = self.cost_volume1(P3_raw, lidar_uv, LF3_flat, l3_idx_n2, RF3_index,
+                                         RF3_flat, lidar_z)
         _, _, l4_points_predict = self.layer_idx(P3_raw, P3, concat_4, raw_feat_point=rf)
 
         l4_valid = check_valid(P4_raw).reshape(B, -1, 1)
@@ -181,8 +185,9 @@ class I2PNetProj(nn.Module):
             P3_warped = Q.warp_points(P3_l4, q_iter, t_iter) * l3_nowarp_valid
             z_w = P3_warped[:, :, 2:]
             uv_w = P3_warped / (z_w + 1e-10)
-            concat_3 = self.cost_volume2(P3_raw, uv_w, LF3_flat, l3_idx_n2, RF3_index, RF3_flat,
-                                         z_w)
+            with span("i2pnet/model/cost_volume"):
+                concat_3 = self.cost_volume2(P3_raw, uv_w, LF3_flat, l3_idx_n2, RF3_index,
+                                             RF3_flat, z_w)
             l3_cv_predict = self.flow_predictor0_predict(
                 LF3_flat, l3_cv_up, concat_3.reshape(B, H3 * W3, -1))
             l3_cv_w = mask_logits(self.flow_predictor0_w(LF3_flat, l3_cv_w_up, l3_cv_predict),

@@ -20,6 +20,7 @@ from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
 from i2pnet_tpu_torch.losses import get_projection_gt, projection_mask_loss, registration_loss
 from i2pnet_tpu_torch.parallel.mesh import ambient_mesh, average_gradients_, average_metrics
 from i2pnet_tpu_torch.train.state import TrainState, clip_by_global_norm_
+from i2pnet_tpu_torch.utils.trace import span
 
 
 def _compute_gt_project(batch, hw) -> torch.Tensor:
@@ -142,34 +143,38 @@ def _make_step(model, loss_fn, accum_steps: int = 1):
         if B % accum_steps != 0:
             raise ValueError(f"batch size {B} not divisible by accum_steps {accum_steps}")
         size = B // accum_steps
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        metrics = []
-        for i in range(accum_steps):
-            loss, m = loss_fn({k: v[i * size:(i + 1) * size] for k, v in batch.items()},
-                              generator, state.step)
-            loss.backward()
-            metrics.append(m)
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.grad is None:
-                    # a parameter the loss does not reach (the pose heads
-                    # under 'class', the mask heads under 'regist'): a zero
-                    # gradient, which Adam's decay term still moves, as
-                    # optax moves it
-                    p.grad = torch.zeros_like(p)
-                else:
-                    p.grad.div_(accum_steps)
-        mesh = ambient_mesh()
-        if mesh is not None:
-            average_gradients_(model.parameters(), mesh)
-        if state.clip > 0:
-            clip_by_global_norm_(model.parameters(), state.clip)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        out = {k: torch.stack([m[k] for m in metrics]).mean(0) for k in metrics[0]}
-        return out if mesh is None else average_metrics(out, mesh)
+        with span("i2pnet/train/step"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            metrics = []
+            for i in range(accum_steps):
+                with span("i2pnet/train/forward"):
+                    loss, m = loss_fn({k: v[i * size:(i + 1) * size] for k, v in batch.items()},
+                                      generator, state.step)
+                with span("i2pnet/train/backward"):
+                    loss.backward()
+                metrics.append(m)
+            with span("i2pnet/train/optimizer"):
+                with torch.no_grad():
+                    for p in model.parameters():
+                        if p.grad is None:
+                            # a parameter the loss does not reach (the pose
+                            # heads under 'class', the mask heads under
+                            # 'regist'): a zero gradient, which Adam's decay
+                            # term still moves, as optax moves it
+                            p.grad = torch.zeros_like(p)
+                        else:
+                            p.grad.div_(accum_steps)
+                mesh = ambient_mesh()
+                if mesh is not None:
+                    average_gradients_(model.parameters(), mesh)
+                if state.clip > 0:
+                    clip_by_global_norm_(model.parameters(), state.clip)
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            out = {k: torch.stack([m[k] for m in metrics]).mean(0) for k in metrics[0]}
+            return out if mesh is None else average_metrics(out, mesh)
 
     return train_step
 

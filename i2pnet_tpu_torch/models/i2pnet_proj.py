@@ -11,7 +11,15 @@ At eval every LiDAR level runs the dense route, its multiplicities from the
 selection kernel on the card (``ops/select_cuda.py``); in bf16 the RGB
 encoder runs the fused eval block kernel (``ops/conv_cuda.py``). The
 forward makes no host-device synchronisation, so it can be captured as a
-CUDA graph. In training (``train/step.py`` ``make_train_step_proj``) the
+CUDA graph. At eval on the card with grad off, the forward replays its two
+segments of plain PyTorch as CUDA graphs of its own (``utils/graphs.py``,
+``self.graphs``): ``_cost_volume1`` (the l3 grid against the image) and
+``_heads`` (the flow predictors, the l4 head, the upconvs, the l3
+refinement and the pose compositions). The kernels' callers stay eager
+between them: the RGB encoder, the projection, the LiDAR levels and
+``layer_idx``. On a replayed call the ``i2pnet/model/cost_volume`` spans
+inside the segments do not open; ``i2pnet/model/graph_replay`` does. In
+training (``train/step.py`` ``make_train_step_proj``) the
 levels take the gathered route, the heads draw their dropout from the
 caller's generator, and in bf16 the RGB encoder runs the train kernels
 (``ops/conv_train_cuda.py``), or the native chain under
@@ -38,6 +46,7 @@ from i2pnet_tpu_torch.nn.proj_backbone import (
 )
 from i2pnet_tpu_torch.ops import quaternion as Q
 from i2pnet_tpu_torch.ops.projection import check_valid, grid_indices, spherical_project
+from i2pnet_tpu_torch.utils.graphs import Graphs
 from i2pnet_tpu_torch.utils.trace import span
 
 FEATURE_WIDTH = 3  # the lidar_feature width (zeros when none is given)
@@ -53,6 +62,7 @@ class I2PNetProj(nn.Module):
     def __init__(self, cfg: I2PNetProjConfig, eval_info: bool = False, device=None):
         super().__init__()
         self.eval_info = eval_info
+        self.graphs = Graphs()
         with torch.device(resolve_device(device)):
             self._build(cfg)
 
@@ -122,17 +132,7 @@ class I2PNetProj(nn.Module):
         heads' dropout in training."""
         cfg = self.cfg
         B, H, W, _ = rgb_img.shape
-        Hs, Ws = cfg.lidar_Hs, cfg.lidar_Ws
         rf = cfg.raw_feat_point
-
-        with span("i2pnet/model/rgb_encoder"):
-            RF3 = self.rgb_encoder(rgb_img)[-1]
-        h3, w3 = RF3.shape[1], RF3.shape[2]
-        # K^-1 in full f32, without linalg.inv's host-synchronising check
-        intrinsic3 = change_intrinsic(intrinsic.float(), (h3, w3), (H, W))
-        RF3_index = torch.einsum("bij,bnj->bni", torch.linalg.inv_ex(intrinsic3).inverse,
-                                 set_id_grid(h3, w3, B, RF3.device))
-        RF3_flat = RF3.reshape(B, h3 * w3, RF3.shape[-1])
 
         feats0 = lidar_feature
         if feats0 is None:
@@ -150,17 +150,59 @@ class I2PNetProj(nn.Module):
             P3_raw, P3, LF3 = self.lidar_lv3(P2_raw, P2, LF2, raw_feat_point=rf)
             P4_raw, P4, LF4 = self.lidar_lv4(P3_raw, P3, LF3, raw_feat_point=rf)
 
-        H3, W3, H4, W4 = Hs[2], Ws[2], Hs[3], Ws[3]
+        # the image branch after the LiDAR one: the levels give the card
+        # work at once, and the RGB encoder's many small launches are issued
+        # while it runs
+        with span("i2pnet/model/rgb_encoder"):
+            RF3 = self.rgb_encoder(rgb_img)[-1]
+        h3, w3 = RF3.shape[1], RF3.shape[2]
+        # K^-1 in full f32, without linalg.inv's host-synchronising check
+        intrinsic3 = change_intrinsic(intrinsic.float(), (h3, w3), (H, W))
+        RF3_index = torch.einsum("bij,bnj->bni", torch.linalg.inv_ex(intrinsic3).inverse,
+                                 set_id_grid(h3, w3, B, RF3.device))
+        RF3_flat = RF3.reshape(B, h3 * w3, RF3.shape[-1])
+
+        concat_4, = self.graphs.run(self, "cost_volume1", self._cost_volume1, P3_raw, P3, LF3,
+                                    RF3_index, RF3_flat)
+        _, _, l4_points_predict = self.layer_idx(P3_raw, P3, concat_4, raw_feat_point=rf)
+        out3, out4, W_l3 = self.graphs.run(
+            self, "heads", lambda *a: self._heads(*a, generator=generator), P3_raw, P3, LF3,
+            P4_raw, P4, LF4, l4_points_predict, RF3_index, RF3_flat)
+
+        out = {"out3": out3, "out4": out4, "pm3": None, "pm4": None, "sx": self.sx, "sq": self.sq}
+        if self.eval_info:
+            out.update(W_l3=W_l3, P3=P3.reshape(B, -1, 3), P4=P4.reshape(B, -1, 3))
+        return out
+
+    # The two segments of plain PyTorch around ``layer_idx`` (its dense
+    # route launches the selection kernel): each is one CUDA graph at eval
+    # on the card (``utils/graphs.py``).
+
+    def _cost_volume1(self, P3_raw, P3, LF3, RF3_index, RF3_flat):
+        """(concat_4,): the l3 grid against the image at the initial pose."""
+        B, H3, W3 = P3.shape[0], self.cfg.lidar_Hs[2], self.cfg.lidar_Ws[2]
         P3_l4 = P3.reshape(B, H3 * W3, 3)
         LF3_flat = LF3.reshape(B, H3 * W3, -1)
-        l3_idx_n2 = grid_indices(B, H3, W3, rgb_img.device)
+        l3_idx_n2 = grid_indices(B, H3, W3, P3.device)
         lidar_z = P3_l4[:, :, 2:]
         lidar_uv = P3_l4 / (lidar_z + 1e-10)
 
         with span("i2pnet/model/cost_volume"):
             concat_4 = self.cost_volume1(P3_raw, lidar_uv, LF3_flat, l3_idx_n2, RF3_index,
                                          RF3_flat, lidar_z)
-        _, _, l4_points_predict = self.layer_idx(P3_raw, P3, concat_4, raw_feat_point=rf)
+        return (concat_4,)
+
+    def _heads(self, P3_raw, P3, LF3, P4_raw, P4, LF4, l4_points_predict, RF3_index, RF3_flat,
+               generator=None):
+        """(out3, out4, W_l3): the l4 head, the upconvs and the l3
+        refinement (``refine_iters`` passes), out3 and out4 in f32."""
+        cfg = self.cfg
+        B = P3.shape[0]
+        H3, W3, H4, W4 = cfg.lidar_Hs[2], cfg.lidar_Ws[2], cfg.lidar_Hs[3], cfg.lidar_Ws[3]
+        rf = cfg.raw_feat_point
+        P3_l4 = P3.reshape(B, H3 * W3, 3)
+        LF3_flat = LF3.reshape(B, H3 * W3, -1)
+        l3_idx_n2 = grid_indices(B, H3, W3, P3.device)
 
         l4_valid = check_valid(P4_raw).reshape(B, -1, 1)
         LF4_flat = LF4.reshape(B, H4 * W4, -1)
@@ -197,9 +239,4 @@ class I2PNetProj(nn.Module):
             q, t = Q.compose_pose(q3, t3, q_iter, t_iter)
             q_iter, t_iter = q3, t3  # the next pass warps by the raw residual
         out3 = torch.cat([q, t], dim=1)
-
-        out = {"out3": out3.float(), "out4": out4.float(), "pm3": None, "pm4": None,
-               "sx": self.sx, "sq": self.sq}
-        if self.eval_info:
-            out.update(W_l3=W_l3, P3=P3_l4, P4=P4.reshape(B, H4 * W4, 3))
-        return out
+        return out3.float(), out4.float(), W_l3

@@ -75,6 +75,8 @@ NEW = [
     "i2pnet_tpu_torch.ops.pointops",
     # the spans
     "i2pnet_tpu_torch.utils.trace",
+    # the proj eval forward's segment graphs
+    "i2pnet_tpu_torch.utils.graphs",
 ]
 SCRIPTS = ["chip_smoke.py", "evaluate_torch.py", "train_torch.py",
            "tools/synthetic_convergence_torch.py", "tools/reference_ckpt_to_torch.py",
@@ -118,5 +120,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (62 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 62
+    # the walk found the whole package (63 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 63

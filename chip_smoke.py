@@ -53,15 +53,15 @@ builders. Phases, each raising on failure:
    on the same routing (the two last yardsticks, not the same function);
 8. proj eval: run the forward; check out3/out4 (finite, unit quaternions,
    a second forward identical) and the launches in one forward (select 5,
-   encoder block 15, FPS 0, cv1 0);
+   dense level 35, encoder block 15, FPS 0, cv1 0);
 9. hold every select call of that forward against its plain version
-   exactly, and every encoder-block call at the proj image's shapes within
-   0.01 * max(|ref|, 1);
+   exactly, and every dense level pass and encoder-block call at the proj
+   image's shapes within 0.01 * max(|ref|, 1);
 10. time the proj forward (median of 3 windows of 20) and under CUDA-graph
-   replay (which also proves it has no host synchronisation), and the
-   select kernel's launches of one forward by graph replay beside its plain
-   version and its bound, and each select call alone (and ten in one
-   graph);
+   replay (which also proves it has no host synchronisation), the select
+   kernel's and the dense level kernel's launches of one forward by graph
+   replay beside their plain versions and bounds, and each select call
+   alone (and ten in one graph);
 11. proj train, the default pool backward (idx): one step (identity
    decalibration, dropout on, Adam); check the launches (conv fwd 15, dx
    14, dw 15, bn_pool fwd 15, bwd 15, every other kernel 0), a finite loss,
@@ -272,7 +272,13 @@ builders. Phases, each raising on failure:
    candidate builder against the default (``window_candidates``), bit for
    bit and timed, at ``lidar_lv1`` and at every call site of the shipped
    proj model's train step and eval forward, and the whole forward and
-   step under each.
+   step under each;
+34. the dense level kernel (``csrc/dense_level.cu``) at each dense level
+   of the shipped bf16 proj model, on phase 10's inputs and on the
+   benchmark's large-range sweep: every level on the kernel, each call's
+   launches counted (2L + 1), its features against the plain chain's
+   within 0.01 * max(|ref|, 1), and on the sweep each level's module call
+   timed by graph replay beside the plain chain and its bound.
 
 The script assumes no h5py: phases 24-29 stand in for the loaders' map
 read (``read_local_map``) and the builders' h5 writes
@@ -292,7 +298,7 @@ row was timed on, and the launches on every path), then as its last line
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
 (``--profile`` adds torch.profiler breakdowns of the free forward, the
 train step, the proj forward and the proj train step; ``--phase N`` runs
-the build and phase N alone, for N = 30, 31, 32 or 33, and prints neither JSON
+the build and phase N alone, for N = 30 to 34, and prints neither JSON
 line). It never runs on
 the CPU: without a CUDA device it exits non-zero.
 """
@@ -325,10 +331,15 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 NO_LAUNCHES = dict.fromkeys(
     ("fps", "encoder_block", "cv1", "conv_fwd", "conv_dx", "conv_dw", "bn_pool_fwd", "bn_pool_bwd",
-     "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1", "pool_route_s2", "select"), 0)
+     "bn_pool_fwd_notap", "bn_pool_bwd_recompute", "pool_route_s1", "pool_route_s2", "select",
+     "dense_level"), 0)
 TRAIN_LAUNCHES = dict(NO_LAUNCHES, fps=4, conv_fwd=15, conv_dx=14, conv_dw=15, bn_pool_fwd=15,
                       bn_pool_bwd=15)
-PROJ_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15, select=5)
+# a bf16 proj eval forward: the RGB encoder's blocks, and its five dense
+# levels (lidar_lv1-4, layer_idx), each the select kernel once and the dense
+# level kernel 2L + 1 = 7 times (three layers)
+PROJ_FORWARD = dict(encoder_block=15, select=5, dense_level=35)
+PROJ_LAUNCHES = dict(NO_LAUNCHES, **PROJ_FORWARD)
 # the proj train step on each pool backend: the default (idx), pallas (no
 # taps, recomputed), a forward without gradient, and the native chain
 # (I2PNET_FUSED_TRAIN=0) with the routed pool
@@ -514,6 +525,23 @@ def select_ops(a, m) -> float:
 
 
 BOUNDS["select"] = lambda a, out: bound(nbytes(a[0], out), select_ops(a, out), F32_FLOPS)
+
+
+def dense_level_ops(a) -> float:
+    """A dense level pass's tensor-core work: each selected slot (m > 0)
+    through the layers the pass computes (0..layer; all of them for the
+    max), 2 x cin x cout a layer."""
+    from i2pnet_tpu_torch.ops import dense_level_cuda
+
+    m, weights, layer, kind = a[3], a[4], a[17], a[18]
+    depth = len(weights) if kind == dense_level_cuda.MAX else layer + 1
+    return float((m > 0).sum()) * sum(2.0 * w.shape[0] * w.shape[1] for w in weights[:depth])
+
+
+# the grids, m, the weights and the statistics' sums read once, the sums or
+# the features written once
+BOUNDS["dense_level"] = lambda a, out: bound(nbytes(a[0], a[1], a[2], a[3], *a[4], *a[8], out),
+                                             dense_level_ops(a), BF16_FLOPS)
 
 
 def cv1_flops(a) -> float:
@@ -793,9 +821,9 @@ def check_outputs(out, out2, label: str) -> None:
 
 def eval_kernel_error(name, plain, calls) -> float:
     """Hold one eval kernel's calls against its plain version; the worst
-    max abs error. FPS and select exactly; the encoder block within 0.01 *
-    max(|ref|, 1) (one bf16 ulp of f32 sums in another order); cv1 within
-    5e-3."""
+    max abs error. FPS and select exactly; the encoder block and a dense
+    level pass within 0.01 * max(|ref|, 1) (one bf16 ulp of f32 sums in
+    another order); cv1 within 5e-3."""
     import torch
 
     worst = 0.0
@@ -806,9 +834,9 @@ def eval_kernel_error(name, plain, calls) -> float:
         if name in ("fps", "select"):
             check(torch.equal(got, ref), f"{name} differs from its plain version at "
                                          f"{tuple(args[0].shape)}, {args[1:]}")
-        elif name == "encoder_block":
+        elif name in ("encoder_block", "dense_level"):
             bar = 0.01 * max(float(ref.float().abs().max()), 1.0)
-            check(err <= bar, f"encoder block {tuple(args[0].shape)}: {err} > {bar}")
+            check(err <= bar, f"{name} {tuple(args[0].shape)}: {err} > {bar}")
         else:
             check(err <= 5e-3, f"cv1: max abs err {err} > 5e-3")
     print(f"{name}: {len(calls)} calls match the plain version, max abs err {worst:.3e}")
@@ -915,8 +943,8 @@ def past_limits(launches_of, fps_cuda, select_cuda, dev, card) -> None:
 # stands in for the synthetic tree's calib.txt.
 EVAL_STAGES, EVAL_FRAMES, EVAL_SCAN_POINTS = 2, 13, 120000
 CLI_BATCHES, FREE_EVAL_BATCHES = 4, 3
-CLI_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * CLI_BATCHES,
-                    select=5 * EVAL_STAGES * CLI_BATCHES)
+CLI_LAUNCHES = dict(NO_LAUNCHES, **{k: v * EVAL_STAGES * CLI_BATCHES
+                                    for k, v in PROJ_FORWARD.items()})
 FREE_EVALUATOR_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * FREE_EVAL_BATCHES,
                                encoder_block=15 * EVAL_STAGES * FREE_EVAL_BATCHES,
                                cv1=EVAL_STAGES * FREE_EVAL_BATCHES)
@@ -924,8 +952,8 @@ FREE_EVALUATOR_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * FREE_EVAL_BATC
 # on, over each phase's data repeated, so that a dozen full batches count
 CLI_REPEATS, FREE_EVAL_REPEATS = 4, 5
 TIMED_CLI_BATCHES = -(-2 * EVAL_FRAMES * CLI_REPEATS // BATCH)
-TIMED_CLI_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * TIMED_CLI_BATCHES,
-                          select=5 * EVAL_STAGES * TIMED_CLI_BATCHES)
+TIMED_CLI_LAUNCHES = dict(NO_LAUNCHES, **{k: v * EVAL_STAGES * TIMED_CLI_BATCHES
+                                          for k, v in PROJ_FORWARD.items()})
 TIMED_FREE_LAUNCHES = {k: v * FREE_EVAL_REPEATS for k, v in FREE_EVALUATOR_LAUNCHES.items()}
 KITTI_CALIB = (
     "P2: 7.188560e+02 0.000000e+00 6.071928e+02 4.538225e+01 0.000000e+00 7.188560e+02 "
@@ -1145,7 +1173,7 @@ def check_eval_outputs(summary, log_dir: str, count: int, label: str, tag: str =
 # tools/synthetic_convergence_torch.py's data.
 TRAIN_FRAMES = {0: 16, 1: 16, 9: 8}
 CLI_STEPS = (TRAIN_FRAMES[0] + TRAIN_FRAMES[1]) // BATCH
-PROJ_VAL_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15, select=5)
+PROJ_VAL_LAUNCHES = PROJ_LAUNCHES
 FREE_VAL_LAUNCHES = dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1)
 # the timed epochs: each training frame 4 times, 16 steps an epoch
 TIMED_REPEATS, TIMED_WORKERS = 4, (2, 4, 0)
@@ -2852,7 +2880,7 @@ def demo_phase(ctx, work: str, state: dict) -> dict:
     demo = tool("render_demo_torch")
     rows = {}
     per_frame = dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1)
-    per_proj_frame = dict(NO_LAUNCHES, encoder_block=15, select=5)
+    per_proj_frame = PROJ_LAUNCHES
     for proj in (False, True):
         family = "proj" if proj else "free"
         if proj:
@@ -3242,8 +3270,8 @@ BF16_STAT_BAR = 1e-2
 BF16_F32_GAP_RATIOS = (1.25, 1.5)
 DP_FREE_EVAL_LAUNCHES = dict(NO_LAUNCHES, fps=4 * EVAL_STAGES * 3,
                              encoder_block=15 * EVAL_STAGES * 3, cv1=EVAL_STAGES * 3)
-DP_PROJ_EVAL_LAUNCHES = dict(NO_LAUNCHES, encoder_block=15 * EVAL_STAGES * 4,
-                             select=5 * EVAL_STAGES * 4)
+DP_PROJ_EVAL_LAUNCHES = dict(NO_LAUNCHES, **{k: v * EVAL_STAGES * 4
+                                             for k, v in PROJ_FORWARD.items()})
 
 
 def absorbed_biases(model) -> set:
@@ -3464,7 +3492,7 @@ def dp_rank(rank: int, work: str) -> None:
     check(maybe_initialize_distributed(backend="gloo", init_method=f"file://{work}/store"),
           "phase 30: no process group")
     mesh = make_mesh()
-    eval_kernels, train_kernels, _, _, select = kernel_table()
+    eval_kernels, train_kernels, _, _, select, _ = kernel_table()
     report = {"rank": rank, "device": str(mesh.device), "backend": dist.get_backend(),
               "launches": {}, "errors": {}, "ms": {}, "pairs_per_s": {}, "mean_fps": {}}
     tensors = {}
@@ -4000,7 +4028,7 @@ def dp_phase(ctx, work: str, path_launches: dict) -> None:
 # on its proj family at a reduced size
 EXPORT_CASES = (("free", BATCH), ("free", 1), ("proj", BATCH))
 EXPORT_LAUNCHES = {"free": dict(NO_LAUNCHES, fps=4, encoder_block=15, cv1=1),
-                   "proj": dict(NO_LAUNCHES, encoder_block=15, select=5)}
+                   "proj": PROJ_LAUNCHES}
 REHEARSAL_ARGS = ("--families", "proj", "--frames", "20", "--max_epoch", "1")
 REHEARSAL_PAIRS = 8  # max(4, 20 // 10) frames of each test sequence, 7 and 8
 
@@ -4018,8 +4046,8 @@ def serve_exported(cases_path: str) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    eval_kernels, select = eval_kernel_table()
-    kernels = eval_kernels + [select]
+    eval_kernels, select, dense = eval_kernel_table()
+    kernels = eval_kernels + [select, dense]
     counted = _counted_modules()
     with open(cases_path) as f:
         cases = json.load(f)
@@ -4192,7 +4220,7 @@ def rehearsal_phase(ctx, work: str) -> None:
 # largest gradient, the CPU tests' bar against JAX
 # (tests/test_torch_dist_mode.py). bf16 against f32 on the card at a bar
 # that catches a wrong layout or stride (O(1)).
-DIST_LAUNCHES = dict(NO_LAUNCHES, select=1)
+DIST_LAUNCHES = dict(NO_LAUNCHES, select=1, dense_level=7)
 DIST_LEVEL = dict(out_h=16, out_w=225, stride_h=4, stride_w=8, kernel_size=(9, 15), nsample=32,
                   distance=0.75, mlp=(16, 16, 32))
 DIST_UPCONV = dict(out_h=4, out_w=57, stride_h=1, stride_w=2, kernel_size=(5, 9), nsample=8,
@@ -4785,11 +4813,128 @@ def code_no_model_runs_phase(ctx, path_launches: dict) -> None:
           f"{ctx.card}")
 
 
+def sweep_inputs(device, B: int = BATCH, seed: int = 3000000019):
+    """The proj model's inputs from the benchmark's large-range sweep
+    (``h100_bench/gen.py``, traffic ``lr-eval``): (rgb, cloud, raw cloud,
+    intrinsic), B rows."""
+    import torch
+
+    from h100_bench import gen
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100_bench")
+    with open(os.path.join(root, "configs", "i2pnet-proj-kitti-lr.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(root, "traffic", "lr-eval.json")) as f:
+        traffic = dict(json.load(f), batch=B)
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in gen.model_keys(gen.make_batch(seed, 0, config, traffic)).items()}
+    return b["rgb"], b["lidar"], b["raw_xyz"], b["intrinsic"]
+
+
+DENSE_LEVELS = ("lidar_lv1", "lidar_lv2", "lidar_lv3", "lidar_lv4", "layer_idx")
+
+
+def dense_level_calls(model, inputs) -> list:
+    """Each dense level's call in one eval forward of the proj model on
+    inputs, without gradient: [(name, module, args, kwargs)], in the order
+    of ``DENSE_LEVELS``."""
+    import torch
+
+    calls = []
+    hooks = [getattr(model, name).register_forward_pre_hook(
+        lambda mod, a, kw, name=name: calls.append((name, mod, a, kw)), with_kwargs=True)
+        for name in DENSE_LEVELS]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def dense_level_bound(mod, args, kwargs, out) -> float:
+    """A dense level's bound (s): its inputs read once (the grids, m, the
+    weights) and its features written once at 3.35 TB/s, or each selected
+    slot's MLP once (no recomputation) at the bf16 peak."""
+    from i2pnet_tpu_torch.ops import dense_window
+
+    xyz_raw, xyz, feature = args[:3]
+    m = dense_window.window_multiplicity(
+        xyz if mod.use_trans else xyz_raw, out_h=mod.out_h, out_w=mod.out_w, qstride=mod.stride,
+        kernel_size=mod.kernel_size, K=mod.nsample, distance=mod.distance)
+    rows = float((m > 0).sum())
+    layers = mod.mlp_convs.layers
+    flops = rows * sum(2.0 * c.Dense_0.in_features * c.Dense_0.out_features for c in layers)
+    weights = sum(p.numel() * p.element_size() for p in mod.parameters())
+    grids = sum(t.numel() * t.element_size() for t in (xyz_raw, xyz, feature))
+    byte_count = grids + m.numel() * 4 + weights + out.numel() * 4
+    return max(byte_count / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+
+
+def dense_level_phase(ctx) -> dict:
+    """Phase 34: the dense eval level kernel (``csrc/dense_level.cu``) at
+    every dense level of the shipped bf16 proj model (``lidar_lv1-4``,
+    ``layer_idx``), on chip_smoke's proj inputs and on the benchmark's
+    sweep: every level of the forward on the kernel; each call's launches,
+    counted (2L + 1), and its features against the plain chain's (0.01 *
+    max(|ref|, 1)); on the sweep each level timed by graph replay beside
+    the plain chain and its bound."""
+    import torch
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+    from i2pnet_tpu_torch.ops import dense_level_cuda
+
+    pcfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    model = init_random_(I2PNetProj(pcfg), torch.Generator().manual_seed(SEED)).eval()
+    rows = {}
+    for label, inputs in (("bench", make_proj_inputs(ctx.dev)),
+                          ("sweep", sweep_inputs(ctx.dev))):
+        routes = dict(dense_level_cuda.routes)
+        calls = dense_level_calls(model, inputs)
+        torch.cuda.synchronize()
+        moved = {k: v - routes.get(k, 0) for k, v in dense_level_cuda.routes.items()
+                 if v != routes.get(k, 0)}
+        check([c[0] for c in calls] == list(DENSE_LEVELS) and moved == {"kernel": 5},
+              f"phase 34 {label}: dense level routes {moved}")
+        for name, mod, args, kwargs in calls:
+            with torch.no_grad():
+                before = dense_level_cuda.launches
+                got = mod(*args, **kwargs)[2]
+                launches = dense_level_cuda.launches - before
+                check(launches == 2 * len(mod.mlp_convs.layers) + 1,
+                      f"phase 34 {label} {name}: {launches} launches")
+                real = dense_level_cuda.refusal
+                dense_level_cuda.refusal = lambda *a: "plain"
+                try:
+                    ref = mod(*args, **kwargs)[2]
+                    plain_ms = replay_ms(lambda: mod(*args, **kwargs)) if label == "sweep" else None
+                finally:
+                    dense_level_cuda.refusal = real
+                err = float((got - ref).abs().max())
+                bar = 0.01 * max(float(ref.abs().max()), 1.0)
+                check(err <= bar, f"phase 34 {label} {name}: max abs err {err} above {bar}")
+                row = {"launches": launches, "max_abs_err": err}
+                if label == "sweep":
+                    rows[name] = row = dict(
+                        row, ms=replay_ms(lambda: mod(*args, **kwargs)), plain_ms=plain_ms,
+                        bound_ms=1e3 * dense_level_bound(mod, args, kwargs, got))
+            print(f"phase 34 {label} {name}: {json.dumps(row)} on {ctx.card}")
+        del calls
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"phase 34: the five dense levels of a stage (sweep, B={BATCH}, graph replay, the "
+          f"select kernel included): kernel {total['ms']:.3f} ms, plain chain "
+          f"{total['plain_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms on {ctx.card}")
+    print(json.dumps({"dense_level": rows}))
+    return rows
+
+
 def eval_kernel_table():
-    """The eval kernels and the window select, as ``kernel_table`` gives
-    them, from the op library's modules alone (phase 31's serving process
-    imports no other)."""
-    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+    """The eval kernels, the window select and the dense level kernel, as
+    ``kernel_table`` gives them, from the op library's modules alone (phase
+    31's serving process imports no other)."""
+    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, dense_level_cuda, fps_cuda, select_cuda
 
     eval_kernels = [
         dict(name="fps", module=fps_cuda, fn="fps_cuda", plain="fps_plain", src="fps.cu",
@@ -4803,18 +4948,22 @@ def eval_kernel_table():
     select = dict(name="select", module=select_cuda, fn="selection_multiplicity_cuda",
                   plain="selection_multiplicity_plain", src="select.cu",
                   replaces="i2pnet_tpu/ops/select_pallas.py:47")
-    return eval_kernels, select
+    # the chain after the select in a dense eval level; no TPU kernel (the
+    # JAX package's chain is plain jnp)
+    dense = dict(name="dense_level", module=dense_level_cuda, fn="dense_level_pass_cuda",
+                 plain="dense_level_pass_plain", src="dense_level.cu", replaces=None)
+    return eval_kernels, select, dense
 
 
 def kernel_table():
     """The kernels, each a dict of its name, module, wrapper (``fn``),
     plain version, source and the TPU kernel it replaces: (eval kernels,
     train kernels, the pallas backend's pair, the pool route at strides 1
-    and 2, the window select)."""
+    and 2, the window select, the dense level kernel)."""
     from i2pnet_tpu_torch.ops import conv_train_cuda, pool_route_cuda
 
     pcc = "i2pnet_tpu/ops/conv_pallas_train.py"
-    eval_kernels, select = eval_kernel_table()
+    eval_kernels, select, dense = eval_kernel_table()
     train_kernels = [
         dict(name="conv_fwd", src="conv_train.cu", replaces=f"{pcc}:103"),
         dict(name="conv_dx", src="conv_train.cu", replaces=f"{pcc}:103"),
@@ -4833,13 +4982,14 @@ def kernel_table():
     route_kernels = [dict(name=f"pool_route_s{s}", module=pool_route_cuda, fn="pool_route_cuda",
                           plain="pool_route_plain", src="pool_route.cu",
                           replaces="i2pnet_tpu/nn/layers.py:165") for s in (1, 2)]
-    return eval_kernels, train_kernels, pallas_kernels, route_kernels, select
+    return eval_kernels, train_kernels, pallas_kernels, route_kernels, select, dense
 
 
 def _counted_modules():
-    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+    from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, dense_level_cuda, fps_cuda, select_cuda
 
-    return {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda, "select": select_cuda}
+    return {"fps": fps_cuda, "encoder_block": conv_cuda, "cv1": cv_cuda, "select": select_cuda,
+            "dense_level": dense_level_cuda}
 
 
 def reset_counts() -> None:
@@ -4873,23 +5023,25 @@ def main() -> int:
 
     from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
     from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_random_
-    from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda, fps_cuda,
-                                      pool_route_cuda, select_cuda)
+    from i2pnet_tpu_torch.ops import (_build, conv_cuda, conv_train_cuda, cv_cuda,
+                                      dense_level_cuda, fps_cuda, pool_route_cuda, select_cuda)
     from i2pnet_tpu_torch.train import create_train_state, make_train_step, make_train_step_proj
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     ct = conv_train_cuda
-    eval_kernels, train_kernels, pallas_kernels, route_kernels, select = kernel_table()
-    all_kernels = eval_kernels + train_kernels + [select] + pallas_kernels + route_kernels
+    eval_kernels, train_kernels, pallas_kernels, route_kernels, select, dense = kernel_table()
+    all_kernels = (eval_kernels + train_kernels + [select, dense] + pallas_kernels
+                   + route_kernels)
 
     # --- phase 1: build the kernels, name the card
     t0 = time.perf_counter()
     t_start = t0
     sources = sorted({k["src"][:-3] for k in all_kernels})
     _build.build_all(sources)
-    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda, select_cuda, pool_route_cuda):
+    for mod in (fps_cuda, conv_cuda, cv_cuda, conv_train_cuda, select_cuda, pool_route_cuda,
+                dense_level_cuda):
         mod._lib()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} kernel libraries "
           f"(nvcc in parallel)")
@@ -4899,11 +5051,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
 
-    if "--phase" in sys.argv[1:]:  # one of phases 30-33 alone, after the build
+    if "--phase" in sys.argv[1:]:  # one of phases 30-34 alone, after the build
         only = sys.argv[sys.argv.index("--phase") + 1:][:1]
         phases = {"30": dp_phase, "31": export_phase,
                   "32": lambda ctx, work, _: rehearsal_phase(ctx, work),
-                  "33": lambda ctx, work, pl: code_no_model_runs_phase(ctx, pl)}
+                  "33": lambda ctx, work, pl: code_no_model_runs_phase(ctx, pl),
+                  "34": lambda ctx, work, _: dense_level_phase(ctx)}
         check(len(only) == 1 and only[0] in phases,
               f"--phase {only}: only phases {sorted(phases)} run alone")
         import shutil
@@ -5091,7 +5244,7 @@ def main() -> int:
     block = next(k for k in eval_kernels if k["name"] == "encoder_block")
     with torch.no_grad():
         reset_counts()
-        with Captures([block, select]) as captures:
+        with Captures([block, select, dense]) as captures:
             out = pmodel(*pinputs)
         torch.cuda.synchronize()
         proj_launches = read_counts()
@@ -5102,10 +5255,12 @@ def main() -> int:
     check(proj_launches == PROJ_LAUNCHES, f"proj launch counts {proj_launches}")
     check_outputs(out, out2, "proj eval")
 
-    # --- phase 9: every select and encoder-block call against its plain version
+    # --- phase 9: every select, dense level and encoder-block call against its plain version
     with torch.no_grad():
         errors["select"] = eval_kernel_error("select", select_cuda.selection_multiplicity_plain,
                                              captures["select"].calls)
+        errors["dense_level"] = eval_kernel_error(
+            "dense_level", dense_level_cuda.dense_level_pass_plain, captures["dense_level"].calls)
         proj_block_err = eval_kernel_error("encoder_block", conv_cuda.conv_block_plain,
                                            captures["encoder_block"].calls)
     print(f"encoder block at the proj image's shapes "
@@ -5127,6 +5282,8 @@ def main() -> int:
         rows.append(kernel_row(select, proj_launches["select"], errors["select"],
                                captures["select"].calls, card))
         rows[-1]["per_call_proj_forward"] = select_call_shapes(captures["select"].calls, card)
+        rows.append(kernel_row(dense, proj_launches["dense_level"], errors["dense_level"],
+                               captures["dense_level"].calls, card))
         proj_block_ms = replay_ms(lambda: [conv_cuda.conv_block_cuda(*a)
                                            for a, _ in captures["encoder_block"].calls])
         print(f"encoder_block proj: {proj_block_ms:.3f} ms for "
@@ -5509,6 +5666,11 @@ def main() -> int:
     t0 = time.perf_counter()
     code_no_model_runs_phase(ctx, path_launches)
     print(f"phase 33: {time.perf_counter() - t0:.1f} s on {card}")
+
+    # --- phase 34: the dense eval level kernel beside its plain chain
+    t0 = time.perf_counter()
+    dense_level_phase(ctx)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s on {card}")
 
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in path_launches.items()}

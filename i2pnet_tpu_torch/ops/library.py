@@ -1,4 +1,4 @@
-"""The four eval kernels as ``torch.library`` custom ops (namespace ``i2pnet``).
+"""The eval kernels as ``torch.library`` custom ops (namespace ``i2pnet``).
 
     torch.ops.i2pnet.fps(xyz, npoint)
     torch.ops.i2pnet.conv_block(x, w, scale, shift, stride)
@@ -6,11 +6,14 @@
                          v2, v2b)
     torch.ops.i2pnet.select_multiplicity(xyz, out_h, out_w, qstride, kernel_size, K,
                                          distance)
+    torch.ops.i2pnet.dense_level_pass(src, cxyz, feature, m, weights, biases, scales, shifts,
+                                      stats, denom, out_h, out_w, qstride, kernel_size,
+                                      nsample, mode, bf16, layer, kind, eps)
 
 Each op has a CPU implementation, the kernel's plain PyTorch version, a
 CUDA implementation, the kernel's launcher (``fps_cuda``, ``conv_cuda``,
-``cv_cuda``, ``select_cuda``), which raises where the kernel takes no
-such call, and a fake implementation that gives the
+``cv_cuda``, ``select_cuda``, ``dense_level_cuda``), which raises where the
+kernel takes no such call, and a fake implementation that gives the
 output's shape, dtype and strides from the inputs alone. The dispatcher
 picks the implementation by the inputs' device, so an eager call, a
 CUDA-graph replay and a ``torch.export`` program all reach the same
@@ -32,7 +35,7 @@ from typing import List
 import torch
 from torch import Tensor
 
-from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, dense_level_cuda, fps_cuda, select_cuda
 
 
 # --- FPS (csrc/fps.cu) -------------------------------------------------------
@@ -119,3 +122,34 @@ def _(xyz, out_h, out_w, qstride, kernel_size, K, distance):
 def _(xyz, out_h, out_w, qstride, kernel_size, K, distance):
     return xyz.new_empty((xyz.shape[0], out_h * out_w, kernel_size[0] * kernel_size[1] + 1),
                          dtype=torch.float32)
+
+
+# --- a dense eval level's passes (csrc/dense_level.cu) -----------------------
+
+@torch.library.custom_op("i2pnet::dense_level_pass", mutates_args=(), device_types="cpu")
+def dense_level_pass(src: Tensor, cxyz: Tensor, feature: Tensor, m: Tensor, weights: List[Tensor],
+                     biases: List[Tensor], scales: List[Tensor], shifts: List[Tensor],
+                     stats: List[Tensor], denom: float, out_h: int, out_w: int,
+                     qstride: List[int], kernel_size: List[int], nsample: int, mode: str,
+                     bf16: bool, layer: int, kind: int, eps: float) -> Tensor:
+    """One pass of ``dense_level_cuda.dense_level_pass_plain``: (B, C) f32
+    sums for a mean or variance pass, (B, out_h, out_w, C) f32 for the max."""
+    return dense_level_cuda.dense_level_pass_plain(
+        src, cxyz, feature, m, weights, biases, scales, shifts, stats, denom, out_h, out_w,
+        tuple(qstride), tuple(kernel_size), nsample, mode, bf16, layer, kind, eps)
+
+
+@dense_level_pass.register_kernel("cuda")
+def _(src, cxyz, feature, m, weights, biases, scales, shifts, stats, denom, out_h, out_w,
+      qstride, kernel_size, nsample, mode, bf16, layer, kind, eps):
+    return dense_level_cuda.dense_level_pass_cuda(
+        src, cxyz, feature, m.contiguous(), weights, biases, scales, shifts, stats, denom, out_h,
+        out_w, tuple(qstride), tuple(kernel_size), nsample, mode, bf16, layer, kind, eps)
+
+
+@dense_level_pass.register_fake
+def _(src, cxyz, feature, m, weights, biases, scales, shifts, stats, denom, out_h, out_w,
+      qstride, kernel_size, nsample, mode, bf16, layer, kind, eps):
+    if kind == dense_level_cuda.MAX:
+        return m.new_empty((m.shape[0], out_h, out_w, weights[-1].shape[0]), dtype=torch.float32)
+    return m.new_empty((m.shape[0], weights[layer].shape[0]), dtype=torch.float32)

@@ -263,7 +263,26 @@ def evaluate_cli_task(_mesh, rank_dir, argv):
             "files": sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []}
 
 
+def dense_passes_task(mesh, _dir, n, grids, layers):
+    """A dense eval level's 2L + 1 passes (``dense_window.dense_level_passes``,
+    the op's plain version) on this rank's fan-out rows of an n-row batch,
+    under the mesh with the rank's count of real rows."""
+    from i2pnet_tpu_torch.ops import dense_window
+    from i2pnet_tpu_torch.parallel import set_mesh
+
+    raw, xyz, feat = (torch.from_numpy(rows_of(a, mesh, n)[0]) for a in grids)
+    valid = rows_of(grids[0], mesh, n)[1]
+    m = dense_window.window_multiplicity(xyz, out_h=4, out_w=8, qstride=(2, 2),
+                                         kernel_size=(3, 5), K=4, distance=1.5)
+    layers = [tuple(torch.from_numpy(a) for a in layer) for layer in layers]
+    with torch.no_grad(), set_mesh(mesh, valid=valid):
+        feat = dense_window.dense_level_passes(raw, xyz, feat, m, layers, out_h=4, out_w=8,
+                                               qstride=(2, 2), kernel_size=(3, 5), nsample=4,
+                                               mode="diff_feature", bf16=False)
+    return {"valid": valid, "feat": feat}
+
+
 TASKS = {"stage": stage_task, "norms": norms_task, "step": step_task,
          "accum_step": accum_step_task,
          "evaluator": evaluator_task, "train_cli": train_cli_task,
-         "evaluate_cli": evaluate_cli_task}
+         "evaluate_cli": evaluate_cli_task, "dense_passes": dense_passes_task}

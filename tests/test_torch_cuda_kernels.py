@@ -1109,3 +1109,135 @@ def test_kernels_at_dp_batch_sizes(dev, kind, case):
         calls = len(blocks)
     torch.cuda.synchronize()
     assert mod.launches == before + calls
+
+
+# --- the dense eval level (csrc/dense_level.cu) --------------------------------------
+
+def _level_calls(cfg, B, dev):
+    """A bf16 model of cfg with seeded weights and each of its dense levels'
+    calls of one eval forward on the benchmark's large-range sweep (traffic
+    ``lr-eval``), B rows: (model, [(name, module, args, kwargs)])."""
+    from chip_smoke import dense_level_calls, sweep_inputs
+    from i2pnet_tpu_torch.models import I2PNetProj, init_random_
+
+    model = init_random_(I2PNetProj(cfg), torch.Generator().manual_seed(0)).eval()
+    return model, dense_level_calls(model, sweep_inputs(dev, B))
+
+
+def _kernel_against_plain(mod, args, kwargs, monkeypatch):
+    """(the level's features on the kernel, on the plain chain, launches)."""
+    from i2pnet_tpu_torch.ops import dense_level_cuda
+
+    with torch.no_grad():
+        before = dense_level_cuda.launches
+        got = mod(*args, **kwargs)[2]
+        torch.cuda.synchronize()
+        launches = dense_level_cuda.launches - before
+        with monkeypatch.context() as mp:
+            mp.setattr(dense_level_cuda, "refusal", lambda *a: "plain")
+            ref = mod(*args, **kwargs)[2]
+    return got, ref, launches
+
+
+@pytest.mark.parametrize("config,B", [("kitti", 8), ("kitti", 1), ("nuscenes", 8)])
+def test_dense_level_kernel_matches_plain(dev, config, B, monkeypatch):
+    """Every dense level of the shipped proj model in bf16 (``lidar_lv1-4``
+    and ``layer_idx``; the nuScenes 32-row grid too) on the benchmark's
+    sweep, B=8 and B=1: the kernel's features within 0.01 x max(|ref|, 1)
+    of the plain chain's, 2L + 1 launches a level, and a whole forward's
+    five levels all on the kernel."""
+    import dataclasses
+
+    from chip_smoke import DENSE_LEVELS
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.ops import dense_level_cuda
+
+    base = I2PNetProjConfig.nuscenes() if config == "nuscenes" else I2PNetProjConfig()
+    cfg = dataclasses.replace(base, compute_dtype="bfloat16")
+    routes = dict(dense_level_cuda.routes)
+    _, calls = _level_calls(cfg, B, dev)
+    assert [c[0] for c in calls] == list(DENSE_LEVELS)
+    assert dense_level_cuda.routes["kernel"] == routes.get("kernel", 0) + len(DENSE_LEVELS)
+    assert {k: v for k, v in dense_level_cuda.routes.items() if k != "kernel"} == \
+        {k: v for k, v in routes.items() if k != "kernel"}
+    for name, mod, args, kwargs in calls:
+        got, ref, launches = _kernel_against_plain(mod, args, kwargs, monkeypatch)
+        assert launches == 2 * len(mod.mlp_convs.layers) + 1, name
+        assert got.shape == ref.shape and got.dtype == torch.float32, name
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got - ref).abs().max())
+        assert err <= 0.01 * max(float(ref.abs().max()), 1.0), (name, err)
+
+
+def test_dense_level_kernel_dist_mode(dev, monkeypatch):
+    """``dist_mode`` at ``lidar_lv1``'s shapes (one grouped channel, the
+    distance), on the sweep's range grid: the kernel against the plain chain."""
+    import dataclasses
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.models import init_random_
+    from i2pnet_tpu_torch.nn.proj_backbone import ProjectPointNet
+
+    cfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    model, calls = _level_calls(cfg, 8, dev)
+    _, lv1, args, kwargs = calls[0]
+    mod = ProjectPointNet(lv1.out_h, lv1.out_w, *lv1.stride, lv1.kernel_size, lv1.nsample,
+                          lv1.distance, (16, 16, 32), 1, dtype=torch.bfloat16).to(dev)
+    init_random_(mod, torch.Generator().manual_seed(1)).eval()
+    kwargs = dict(kwargs, center_mode=False, using_intens=False, dist_mode=True)
+    got, ref, launches = _kernel_against_plain(mod, args, kwargs, monkeypatch)
+    assert launches == 7 and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 0.01 * max(float(ref.abs().max()), 1.0)
+
+
+def test_dense_level_kernel_repeats_bit_for_bit(dev):
+    """The statistics' sums run in a fixed order: two calls give one result."""
+    import dataclasses
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+
+    cfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    _, calls = _level_calls(cfg, 8, dev)
+    with torch.no_grad():
+        for name, mod, args, kwargs in calls:
+            assert torch.equal(mod(*args, **kwargs)[2], mod(*args, **kwargs)[2]), name
+
+
+def test_dense_level_gate_on_the_card(dev, monkeypatch):
+    """A level call the kernel could take runs the plain chain where a
+    gradient could flow (``plain:grad``; backward then reaches the weights)
+    and where a CUDA graph captures it before the device's arrival counters
+    exist (``plain:capture``: their zeroing would only be recorded); the
+    next eager call makes them, and takes the kernel."""
+    import dataclasses
+
+    from i2pnet_tpu_torch.config import I2PNetProjConfig
+    from i2pnet_tpu_torch.ops import dense_level_cuda
+
+    cfg = dataclasses.replace(I2PNetProjConfig(), compute_dtype="bfloat16")
+    _, calls = _level_calls(cfg, 1, dev)
+    _, mod, args, kwargs = calls[-1]
+    routes = dense_level_cuda.routes
+    before = dict(routes)
+    out = mod(*args, **kwargs)[2]
+    assert routes["plain:grad"] == before.get("plain:grad", 0) + 1
+    out.square().sum().backward()
+    grad = mod.mlp_convs.layers[0].Dense_0.weight.grad
+    assert grad is not None and bool(torch.isfinite(grad).all())
+
+    with torch.no_grad():
+        with monkeypatch.context() as mp:
+            mp.setattr(dense_level_cuda, "refusal", lambda *a: "plain")
+            ref = mod(*args, **kwargs)[2]  # the plain chain's warm-up, eager
+        monkeypatch.setattr(dense_level_cuda, "_counters", {})
+        graph = torch.cuda.CUDAGraph()
+        captured = routes["plain:capture"]
+        with torch.cuda.graph(graph):
+            got = mod(*args, **kwargs)[2]
+        assert routes["plain:capture"] == captured + 1 and not dense_level_cuda._counters
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        kernel = routes["kernel"]
+        mod(*args, **kwargs)
+        assert routes["kernel"] == kernel + 1 and args[0].device in dense_level_cuda._counters

@@ -38,7 +38,7 @@ import torch
 
 from i2pnet_tpu_torch.config import I2PNetConfig, I2PNetProjConfig
 from i2pnet_tpu_torch.models import I2PNet, I2PNetProj, init_flax_
-from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, fps_cuda, select_cuda
+from i2pnet_tpu_torch.ops import conv_cuda, cv_cuda, dense_level_cuda, fps_cuda, select_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -152,7 +152,8 @@ def _jax_variables(family):
 
 
 def _counts():
-    return (fps_cuda.launches, conv_cuda.launches, cv_cuda.launches, select_cuda.launches)
+    return (fps_cuda.launches, conv_cuda.launches, cv_cuda.launches, select_cuda.launches,
+            dense_level_cuda.launches)
 
 
 def test_ops_pass_opcheck():

@@ -20,6 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW = [
     "i2pnet_tpu_torch.ops.projection",
     "i2pnet_tpu_torch.ops.dense_window",
+    "i2pnet_tpu_torch.ops.dense_level_cuda",
     "i2pnet_tpu_torch.ops.select_cuda",
     "i2pnet_tpu_torch.nn.proj_backbone",
     "i2pnet_tpu_torch.models.i2pnet_proj",
@@ -120,5 +121,5 @@ def test_port_imports_without_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # the walk found the whole package (63 modules and subpackages)
-    assert int(proc.stdout.split()[-1]) == 63
+    # the walk found the whole package (64 modules and subpackages)
+    assert int(proc.stdout.split()[-1]) == 64
